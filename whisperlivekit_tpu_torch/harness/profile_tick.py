@@ -1,0 +1,121 @@
+"""Where one streaming tick of the port spends its time on the GPU.
+
+    python -m whisperlivekit_tpu_torch.harness.profile_tick [--lanes 8] [--trace DIR]
+
+Builds ``random:base`` (bf16, seeded) on the card, runs ``--lanes``
+AlignAtt sessions through ``run_tick_batch`` with an AudioPool and an
+EncPool (one anchor tick, then inc ticks, 1 s of speech-like audio per
+tick), times ``--ticks`` inc ticks untraced, then traces as many with
+``torch.profiler`` (the difference is the tracing cost). Prints the
+top operators by device time and by host time, then one JSON line with the
+tick's wall time, device-busy time (the kernels' summed device time), idle
+share, kernel launches per tick and K1's share. ``idle_share`` holds the
+busy time against the UNTRACED mean tick (the profiler slows the host, not
+the kernels); ``idle_share_traced`` against the traced ticks' wall. Needs
+CUDA; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--lanes", type=int, default=8)
+    ap.add_argument("--ticks", type=int, default=4, help="inc ticks traced")
+    ap.add_argument("--trace", default=None, help="directory for a Chrome trace")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_tick: needs a CUDA device", file=sys.stderr)
+        return 1
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisperlivekit_tpu.models.whisper.dims import MODEL_DIMS
+    from whisperlivekit_tpu.models.whisper.tokenizer import get_tokenizer
+
+    from ..models.whisper import model as wm
+    from ..ops.flash_encoder import flash_encoder_attn
+    from ..streaming import alignatt as A
+    from ..streaming.dispatch import run_tick_batch
+    from ..streaming.pools import AudioPool, EncPool
+    from .vocab import install_standin_vocab
+
+    with tempfile.TemporaryDirectory(prefix="wlk_vocab_") as vocab_dir:
+        install_standin_vocab(vocab_dir)
+        tok = get_tokenizer(True, language="en", task="transcribe")
+    dims = MODEL_DIMS["base"]
+    model = wm.init_params(dims, torch.Generator().manual_seed(0), torch.bfloat16, "cuda")
+    engine = A.AlignAttEngine(model, dims, tok, A.AlignAttConfig(language="en"))
+    apool = AudioPool(args.lanes, device="cuda")
+    epool = EncPool(args.lanes + 1, dims, dtype=torch.bfloat16, device="cuda")
+    sessions = []
+    for _ in range(args.lanes):
+        s = A.AlignAttSession(engine)
+        s.pool, s.enc_pool = apool, epool
+        sessions.append(s)
+    rng = np.random.default_rng(0)
+
+    def tick():
+        tis = []
+        for i, s in enumerate(sessions):
+            t = np.arange(16000) / 16000
+            a = 0.3 * np.sin(2 * np.pi * (150 + 20 * i) * t) * (1 + 0.4 * np.sin(2 * np.pi * 3.1 * t))
+            s.insert_audio((a + 0.02 * rng.standard_normal(t.shape)).astype(np.float32))
+            tis.append(s.prepare_tick(False))
+        t0 = time.perf_counter()
+        outs = run_tick_batch(engine, tis, tok, pool=apool, enc_pool=epool)
+        torch.cuda.synchronize()
+        for s, ti, o in zip(sessions, tis, outs):
+            s.finish_tick(ti, o)
+        return time.perf_counter() - t0, [ti.enc_mode for ti in tis]
+
+    first, _ = tick()  # anchor (builds the kernel)
+    tick()
+    untraced = [tick()[0] for _ in range(args.ticks)]  # tracing off: the wall to trust
+    flash_encoder_attn.launches = 0
+    walls, modes = [], []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.ticks):
+            w, m = tick()
+            walls.append(w)
+            modes += m
+    ev = prof.key_averages()
+    # kernel rows only: an operator row repeats the time of the kernels it launched
+    kernels = [e for e in ev if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    k1_us = sum(e.self_device_time_total for e in kernels if "flash_encoder_kernel" in e.key)
+    launches = sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    print(ev.table(sort_by="self_device_time_total", row_limit=15))
+    print(ev.table(sort_by="self_cpu_time_total", row_limit=15))
+    if args.trace:
+        prof.export_chrome_trace(f"{args.trace}/profile_tick.json")
+    busy_s = device_us / 1e6 / args.ticks
+    print(json.dumps({
+        "model": "random:base bf16", "lanes": args.lanes, "ticks": args.ticks,
+        "modes": sorted(set(modes)), "first_tick_ms": round(1e3 * first, 2),
+        "tick_ms_untraced": [round(1e3 * w, 2) for w in untraced],
+        "tick_ms_traced": [round(1e3 * w, 2) for w in walls],
+        "device_busy_ms_per_tick": round(device_us / 1e3 / args.ticks, 3),
+        "idle_share": round(1 - busy_s / (sum(untraced) / len(untraced)), 4),
+        "idle_share_traced": round(1 - busy_s / (sum(walls) / len(walls)), 4),
+        "kernel_launches_per_tick": launches / args.ticks,
+        "kernels_per_tick": sum(e.count for e in kernels) / args.ticks,
+        "k1_ms_per_tick": round(k1_us / 1e3 / args.ticks, 3),
+        "k1_launches": flash_encoder_attn.launches,
+        "device": torch.cuda.get_device_name(0),
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
