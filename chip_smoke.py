@@ -2,23 +2,39 @@
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure raises and exits non-zero):
+Phases (each prints lines; any failure raises and exits non-zero):
 
 1. device  — needs CUDA (there is no CPU path); prints the card's name and
-             power limit; builds every kernel of the main path from csrc/.
+             power limit; builds every kernel of the main paths from csrc/,
+             one nvcc per source, all started together.
 2. kernels — each kernel against its plain PyTorch version on the card, at
-             the shapes the main path gives it, with the kernel's and the
-             plain version's time (CUDA events); then every prefill bucket
-             and a ragged, poisoned T, checked without timing.
-3. main    — the port's main path at the full width of Whisper ``base``
-             (random weights from a seed): TranscriptionEngine +
-             AudioProcessor sessions fed speech-like PCM at full speed, and
-             one ``WS /asr`` stream through the port's server on localhost.
-             Checks that every session got words, that anchor and inc ticks
-             ran, that no tick failed and nothing logged a failure, and that
-             each kernel launched during the run.
+             the shapes the main paths give it, with the kernel's and the
+             plain version's time (CUDA events): K1 (flash_encoder_attn) at
+             the base shapes, every prefill bucket and a ragged, poisoned T.
+3. main    — the base form: an f32 tick on the card against the CPU, then
+             Whisper ``base`` at full width (random weights from a seed):
+             TranscriptionEngine + AudioProcessor sessions fed speech-like
+             PCM, and one ``WS /asr`` stream through the port's server on
+             localhost. Checks that every session got words, that anchor and
+             inc ticks ran, that no tick failed and nothing logged a failure,
+             and that K1 launched during the run.
+4. large   — the large form: one whole-group anchor and two pooled inc
+             ticks in f32 at large-v3 widths (4+4 layers) on the card against
+             the CPU, then ``random:large-v3`` bf16 at full width with
+             AudioProcessor sessions (two joining late) and one ``WS /asr``
+             stream in one 8-wide lane group. Checks that the whole-group
+             anchor, the chunked anchor and the pooled inc tick each ran,
+             that K1 and K2 launched during the run, that every session got
+             words, and that no tick failed and no group recovered.
+5. kernels — the large form's kernels at the shapes its engine gives them:
+             K1 at the encoder's two shapes, every prefix bucket over the
+             dense cross-KV and over the pool, and both refresh widths, and
+             at every (S, T) the large run launched; K2 against its plain
+             version exactly, bf16 and f32, at the run's group width and at
+             24 lanes, with edge and idle lanes.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record, the one before it
+the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
@@ -30,6 +46,7 @@ import logging
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -39,6 +56,7 @@ from whisperlivekit_tpu_torch.ops.flash_encoder import (
     flash_encoder_attn,
     flash_encoder_attn_plain,
 )
+from whisperlivekit_tpu_torch.ops.xkv_merge import W_SPLICE, xkv_splice, xkv_splice_plain
 from whisperlivekit_tpu_torch.streaming.alignatt import AlignAttEngine
 
 PREFIX_BUCKETS = AlignAttEngine.PREFIX_BUCKETS  # prefill S at call site 3
@@ -51,8 +69,20 @@ K1_SHAPES = (
     ("prefill cross-attention", 64, 1500, True),
 )
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the JAX suite's bars
-KERNEL_SOURCE = "whisperlivekit_tpu_torch/csrc/flash_encoder.cu"
-KERNEL_REPLACES = "whisperlivekit_tpu/ops/flash_encoder.py:73"
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "flash_encoder_attn": ("whisperlivekit_tpu_torch/csrc/flash_encoder.cu",
+                           "whisperlivekit_tpu/ops/flash_encoder.py:73"),
+    "xkv_splice": ("whisperlivekit_tpu_torch/csrc/xkv_splice.cu",
+                   "whisperlivekit_tpu/ops/xkv_merge.py:73"),
+}
+
+# large-v3: 20 heads of 64, a lane group of 8 (max_batch_sessions below)
+LG, LH = 8, 20
+# K2 lanes: idle (0), the clip at both ends, every side of a 128 boundary;
+# the main path's 8-lane group takes the first 8, a 24-lane group all
+K2_WIN = (0, 128, 129, 640, 1407, 1408, 1500, 0,
+          1, 127, 255, 256, 257, 383, 384, 999,
+          1000, 1279, 1280, 1409, 1499, 700, 1200, 0)
 
 
 def log(phase: str, **kw) -> None:
@@ -99,26 +129,29 @@ def phase_device() -> str:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     t0 = time.perf_counter()
-    lib = cuda_build.build("flash_encoder")
-    ptxas = lib.with_suffix(".ptxas.txt").read_text() if lib.with_suffix(".ptxas.txt").exists() else ""
-    regs = [ln.strip() for ln in ptxas.splitlines() if "registers" in ln or "spill" in ln]
+    with ThreadPoolExecutor(len(KERNELS)) as ex:  # one nvcc per source, together
+        libs = list(ex.map(cuda_build.build, [src.rsplit("/", 1)[1][:-3] for src, _ in KERNELS.values()]))
     log("device", card=repr(card), torch=torch.__version__, cuda=torch.version.cuda,
-        build_s=round(time.perf_counter() - t0, 2), lib=lib.name)
-    for ln in regs:
-        log("device", ptxas=repr(ln))
+        build_s=round(time.perf_counter() - t0, 2), libs=[lib.name for lib in libs])
+    for lib in libs:
+        report = lib.with_suffix(".ptxas.txt")
+        ptxas = report.read_text() if report.exists() else ""
+        for ln in ptxas.splitlines():
+            if "registers" in ln or "spill" in ln:
+                log("device", lib=lib.name, ptxas=repr(ln.strip()))
     return card
 
 
-def _qkv(S, T, vt, dtype, seed):
+def _qkv(S, T, vt, dtype, seed, b=B, h=H):
     """Inputs in the layouts the main path hands the kernel: q, k, v as
     strided views of [B, T, H, Dh] projections; at the prefill, k and v as
     the contiguous [B, H, Dh, T] cross-KV."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     rnd = lambda *s: torch.randn(*s, generator=g, device="cuda", dtype=torch.float32).to(dtype)  # noqa: E731
-    q = rnd(B, S, H, DH).transpose(1, 2)
+    q = rnd(b, S, h, DH).transpose(1, 2)
     if vt:
-        return q, rnd(B, H, DH, T), rnd(B, H, DH, T)
-    return q, rnd(B, T, H, DH).permute(0, 2, 3, 1), rnd(B, T, H, DH).transpose(1, 2)
+        return q, rnd(b, h, DH, T), rnd(b, h, DH, T)
+    return q, rnd(b, T, h, DH).permute(0, 2, 3, 1), rnd(b, T, h, DH).transpose(1, 2)
 
 
 def _time_ms(fn, iters: int = 20) -> float:
@@ -134,27 +167,38 @@ def _time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _check_k1(label: str, model: str, S: int, T: int, t_valid: int, vt: bool, dtype, b: int, h: int) -> dict:
+    """K1 against its plain version at one call site's shape: checked
+    within the tolerance, timed (CUDA events), logged."""
+    q, k, v = _qkv(S, T, vt, dtype, seed=S + T, b=b, h=h)
+    if t_valid < T:  # a pool's padding columns hold zeros
+        k[..., t_valid:] = 0
+        v[..., t_valid:] = 0
+    got = flash_encoder_attn(q, k, v, t_valid=t_valid, v_transposed=vt)
+    want = flash_encoder_attn_plain(q, k, v, t_valid=t_valid, v_transposed=vt)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    ok = bool(torch.isfinite(got.float()).all().item()) and err <= TOL[dtype]
+    ms = _time_ms(lambda: flash_encoder_attn(q, k, v, t_valid=t_valid, v_transposed=vt))
+    plain_ms = _time_ms(lambda: flash_encoder_attn_plain(q, k, v, t_valid=t_valid, v_transposed=vt))
+    dt = str(dtype).replace("torch.", "")
+    log("kernels", kernel="flash_encoder_attn", model=model, shape=f"B{b}xH{h}xS{S}xT{T}xDh{DH}",
+        t_valid=t_valid, call_site=repr(label), dtype=dt, max_abs_err=err, tol=TOL[dtype],
+        ms=round(ms, 4), plain_ms=round(plain_ms, 4), ok=ok)
+    if not ok:
+        raise AssertionError(f"flash_encoder_attn disagrees at {model} {label} {dt}: {err}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
 def phase_kernels() -> dict:
-    """K1 against its plain version at the three main-path shapes, both
-    dtypes, plus one ragged/poisoned case; returns per-shape records."""
+    """K1 against its plain version at the base form's three main-path
+    shapes, both dtypes, plus one ragged/poisoned case; returns per-shape
+    records."""
     records = {}
     for label, S, T, vt in K1_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = _qkv(S, T, vt, dtype, seed=S + T)
-            got = flash_encoder_attn(q, k, v, t_valid=T, v_transposed=vt)
-            want = flash_encoder_attn_plain(q, k, v, t_valid=T, v_transposed=vt)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            ok = bool(torch.isfinite(got.float()).all().item()) and err <= TOL[dtype]
-            ms = _time_ms(lambda: flash_encoder_attn(q, k, v, t_valid=T, v_transposed=vt))
-            plain_ms = _time_ms(lambda: flash_encoder_attn_plain(q, k, v, t_valid=T, v_transposed=vt))
-            dt = str(dtype).replace("torch.", "")
-            log("kernels", kernel="flash_encoder_attn", shape=f"B{B}xH{H}xS{S}xT{T}xDh{DH}",
-                call_site=repr(label), dtype=dt, max_abs_err=err, tol=TOL[dtype],
-                ms=round(ms, 4), plain_ms=round(plain_ms, 4), ok=ok)
-            if not ok:
-                raise AssertionError(f"flash_encoder_attn disagrees at {label} {dt}: {err}")
-            records[(S, T, dt)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            rec = _check_k1(label, "base", S, T, T, vt, dtype, B, H)
+            records[(S, T, str(dtype).replace("torch.", ""))] = rec
     # every other prefill bucket the main path may hand the kernel
     for S in PREFIX_BUCKETS:
         for dtype in (torch.bfloat16, torch.float32):
@@ -178,6 +222,79 @@ def phase_kernels() -> dict:
     log("kernels", kernel="flash_encoder_attn", case="t_valid=1400 poisoned", max_abs_err=err)
     if not err <= TOL[torch.float32]:
         raise AssertionError(f"masked columns leak into the output: {err}")
+    return records
+
+
+def k1_large_cases(geom: dict) -> list:
+    """(label, S, T, t_valid, v_transposed) of every K1 call the large
+    form's engine can make: the encoder's full window and tail, each prefix
+    bucket's prefill over the dense cross-KV (chunked anchor, EncPool and
+    legacy ticks) and over the pool (whole-group anchor), and the two
+    refresh widths over the pool (pooled inc tick)."""
+    T, Tp, tail = geom["n_audio_ctx"], geom["pool_t"], geom["tail_frames"]
+    cases = [("encoder full window", T, T, T, False), ("encoder tail", tail, tail, tail, False)]
+    for S in geom["prefix_buckets"]:
+        cases.append((f"prefill over dense cross-KV, bucket {S}", S, T, T, True))
+        cases.append((f"prefill over the pool, bucket {S}", S, Tp, T, True))
+    for R in geom["refresh_rows"]:
+        cases.append((f"refresh over the pool, {R} rows", R, Tp, T, True))
+    return cases
+
+
+def _check_k2(shape, win_list, dtype) -> dict:
+    """K2 against its plain version at one pool shape, bit for bit, idle
+    lanes untouched; timed (CUDA events), logged."""
+    win = torch.tensor(win_list, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)  # noqa: E731
+    pk, pv = rnd(*shape), rnd(*shape)
+    tk, tv = rnd(*shape[:-1], W_SPLICE), rnd(*shape[:-1], W_SPLICE)
+    want_k, want_v = xkv_splice_plain(pk, pv, tk, tv, win)
+    idle = [i for i, w in enumerate(win_list) if w == 0]
+    idle_before = pk[:, idle].clone()
+    xkv_splice(pk, pv, tk, tv, win)
+    torch.cuda.synchronize()
+    ibits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    exact = (torch.equal(pk.view(ibits), want_k.view(ibits))
+             and torch.equal(pv.view(ibits), want_v.view(ibits))
+             and torch.equal(pk[:, idle].view(ibits), idle_before.view(ibits)))
+    del want_k, want_v, idle_before
+    ms = _time_ms(lambda: xkv_splice(pk, pv, tk, tv, win))
+    plain_ms = _time_ms(lambda: xkv_splice_plain(pk, pv, tk, tv, win), iters=5)
+    # read + write, K and V, of the lanes with win > 0
+    moved = 2 * 2 * tk.numel() * tk.element_size() * (len(win_list) - len(idle)) // len(win_list)
+    dt = str(dtype).replace("torch.", "")
+    log("kernels", kernel="xkv_splice", shape="x".join(map(str, shape)), dtype=dt,
+        win=list(win_list), exact=exact, ms=round(ms, 4), plain_ms=round(plain_ms, 4),
+        GB_per_s=round(moved / ms / 1e6, 1))
+    if not exact:
+        raise AssertionError(f"xkv_splice disagrees with its plain version at {shape} ({dt})")
+    del pk, pv, tk, tv
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+
+
+def phase_kernels_large(geom: dict, launched: dict) -> dict:
+    """The large form's kernels at the shapes its engine gives them (see
+    k1_large_cases; K2 at the run's group width and at 24 lanes). Fails if
+    the large run launched K1 at an (S, T) not checked here. Returns
+    per-case records."""
+    records = {}
+    G = geom["group_width"]
+    cases = k1_large_cases(geom)
+    for label, S, T, tv, vt in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            rec = _check_k1(label, "large-v3", S, T, tv, vt, dtype, G, LH)
+            records[("flash_encoder_attn", S, T, str(dtype).replace("torch.", ""))] = rec
+    unchecked = set(launched) - {(S, T) for _, S, T, _, _ in cases}
+    if unchecked:
+        raise AssertionError(f"the large run launched K1 at unchecked shapes {sorted(unchecked)}")
+    pool = (geom["n_text_layer"], None, LH, DH, geom["pool_t"])
+    for width in (G, len(K2_WIN)):
+        for dtype in (torch.bfloat16, torch.float32):
+            shape = (pool[0], width, *pool[2:])
+            records[("xkv_splice", width, str(dtype).replace("torch.", ""))] = _check_k2(
+                shape, K2_WIN[:width], dtype)
     return records
 
 
@@ -235,7 +352,8 @@ CHUNK_S = 0.5
 PACE = 10.0          # audio fed at 10x real time
 
 
-async def _feed_processor(processor, pcm: np.ndarray) -> list:
+async def _feed_processor(processor, pcm: np.ndarray, pace: float = PACE, delay: float = 0.0) -> list:
+    await asyncio.sleep(delay)
     results = await processor.create_tasks()
     last = []
 
@@ -247,16 +365,17 @@ async def _feed_processor(processor, pcm: np.ndarray) -> list:
     step = int(16000 * CHUNK_S)
     for i in range(0, len(pcm), step):
         await processor.process_audio(pcm[i : i + step].tobytes())
-        await asyncio.sleep(CHUNK_S / PACE)
+        await asyncio.sleep(CHUNK_S / pace)
     await processor.process_audio(b"")
     await asyncio.wait_for(task, timeout=300)
     await processor.cleanup()
     return [ln.text for ln in last if ln.text]
 
 
-async def _feed_websocket(url: str, pcm: np.ndarray) -> list:
+async def _feed_websocket(url: str, pcm: np.ndarray, pace: float = PACE, delay: float = 0.0) -> list:
     import aiohttp
 
+    await asyncio.sleep(delay)
     texts = []
     async with aiohttp.ClientSession() as http:
         async with http.ws_connect(url) as ws:
@@ -275,7 +394,7 @@ async def _feed_websocket(url: str, pcm: np.ndarray) -> list:
             step = int(16000 * CHUNK_S)
             for i in range(0, len(pcm), step):
                 await ws.send_bytes(pcm[i : i + step].tobytes())
-                await asyncio.sleep(CHUNK_S / PACE)
+                await asyncio.sleep(CHUNK_S / pace)
             await ws.send_bytes(b"")
             await asyncio.wait_for(task, timeout=300)
     return texts
@@ -361,12 +480,235 @@ def phase_main() -> int:
     return run["launches"]
 
 
+def phase_reference_large(tok_for) -> None:
+    """One whole-group anchor then two pooled inc ticks, two sessions, f32,
+    large-v3 widths with the depth cut to 4+4 layers, on the card (K1, K2)
+    and on the CPU (plain versions) in lockstep: the modes and the integer
+    outputs must be equal, no_speech_p within 1e-4."""
+    from dataclasses import replace
+
+    from whisperlivekit_tpu_torch.engine.core import MODEL_DIMS
+    from whisperlivekit_tpu_torch.models.whisper import model as wm
+    from whisperlivekit_tpu_torch.streaming import alignatt as A
+    from whisperlivekit_tpu_torch.streaming.dispatch import run_tick_batch
+
+    dims = replace(MODEL_DIMS["large-v3"], n_audio_layer=4, n_text_layer=4)
+    tok = tok_for(dims)
+    sides = {}
+    for dev in ("cuda", "cpu"):
+        model = wm.init_params(dims, torch.Generator().manual_seed(3), torch.float32, dev)
+        # the large-v3 tail (the cut depth would pick another model class's)
+        eng = A.AlignAttEngine(model, dims, tok, A.AlignAttConfig(language="en", enc_tail_frames=160))
+        pool, enc_pool = A.AudioPool(4, device=dev), A.EncPool(5, dims, torch.float32, dev)
+        xkv = A.XKVAllocator.for_engine(eng, 2, epoch_period=50)
+        sessions = [A.AlignAttSession(eng) for _ in range(2)]
+        for s in sessions:
+            s.pool, s.enc_pool, s.xkv_alloc = pool, enc_pool, xkv
+        sides[dev] = (eng, pool, enc_pool, xkv, sessions)
+    pcms = [speech_pcm(8.0, seed=40 + i).astype(np.float32) / 32768.0 for i in range(2)]
+    calls = {}
+    launched = {"flash_encoder_attn": 0, "xkv_splice": 0}
+    for tick, (a0, a1) in enumerate(((0, 96000), (96000, 112000), (112000, 128000))):
+        res = {}
+        for dev, (eng, pool, enc_pool, xkv, sessions) in sides.items():
+            tis = []
+            for s, pcm in zip(sessions, pcms):
+                s.insert_audio(pcm[a0:a1])
+                tis.append(s.prepare_tick(False))
+            before = (flash_encoder_attn.launches, xkv_splice.launches)
+            A.TICK_PHASE_STATS.clear()
+            with torch.inference_mode():
+                outs = run_tick_batch(eng, tis, tok, pool=pool, enc_pool=enc_pool, xkv=xkv)
+            for s, ti, o in zip(sessions, tis, outs):
+                s.finish_tick(ti, o)
+            if dev == "cuda":
+                launched["flash_encoder_attn"] += flash_encoder_attn.launches - before[0]
+                launched["xkv_splice"] += xkv_splice.launches - before[1]
+            res[dev] = (tuple(t.enc_mode for t in tis), outs, sorted(A.TICK_PHASE_STATS))
+        (gm, go, gp), (cm, co, cp) = res["cuda"], res["cpu"]
+        ints = lambda o: (o.new_tokens, [int(f) for f in o.frames], o.n_keep, o.reason,  # noqa: E731
+                          o.last_attend, o.fire)
+        ns_err = max(abs(a.no_speech_p - b.no_speech_p) for a, b in zip(go, co))
+        ok = gm == cm and gp == cp and all(ints(a) == ints(b) for a, b in zip(go, co)) and ns_err <= 1e-4
+        log("reference", model="large-v3 widths, 4+4 layers, f32 random", tick=tick, modes=gm,
+            phases=gp, gpu=[ints(o) for o in go], cpu=[ints(o) for o in co],
+            no_speech_err=ns_err, ok=ok)
+        if not ok:
+            raise AssertionError(f"the card's pooled tick {tick} disagrees with the CPU reference")
+        calls.setdefault(gm, 0)
+        calls[gm] += 1
+    want = {("anchor", "anchor"): 1, ("inc", "inc"): 2}
+    if calls != want or not all(launched.values()):
+        raise AssertionError(f"expected one whole-group anchor, two inc ticks and both kernels: "
+                             f"{calls} {launched}")
+    log("reference", model="large-v3 widths", kernel_launches=launched, ok=True)
+
+
+LARGE_SESSIONS = 5       # AudioProcessor sessions in process, plus one over WS /asr
+LARGE_SECONDS = 20.0
+LARGE_PACE = 2.0         # slow enough that windows evict and epochs pass
+LARGE_DELAYS = (0.0, 0.0, 0.0, 0.0, 3.0)  # the fifth joins late: a chunked anchor
+LARGE_WS_DELAY = 6.0
+LARGE_PROGRAMS = ("alignatt_tick_anchor_group", "alignatt_tick_anchor_pooled",
+                  "alignatt_tick_inc_skv")
+
+
+def _quantile(xs, q):
+    xs = sorted(xs)
+    return round(xs[min(int(q * len(xs)), len(xs) - 1)], 1) if xs else None
+
+
+async def _main_path_large() -> dict:
+    from aiohttp import web
+
+    from whisperlivekit_tpu_torch.engine.core import TranscriptionEngine, WLKConfig
+    from whisperlivekit_tpu_torch.server.app import WLKServer
+    from whisperlivekit_tpu_torch.session.processor import AudioProcessor
+    from whisperlivekit_tpu_torch.streaming import alignatt as A
+    from whisperlivekit_tpu_torch.streaming import dispatch as D
+
+    # one 8-wide lane group; an 8 s window evicts every 4 s, and a group
+    # epoch passes every 4 pooled inc ticks
+    config = WLKConfig(model_size="random:large-v3", lan="en", pcm_input=True, vac=False,
+                       param_dtype="bfloat16", log_level="WARNING", max_batch_sessions=LG,
+                       audio_max_len=8.0)
+    t0 = time.perf_counter()
+    engine = TranscriptionEngine(config)
+    init_s = time.perf_counter() - t0
+    if engine.device.type != "cuda":
+        raise AssertionError(f"engine landed on {engine.device}, not the card")
+    runner = web.AppRunner(WLKServer(config, engine=engine).app)
+    await runner.setup()  # startup runs the engine's warmup tick
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    host, port = runner.addresses[0][:2]
+    setup_s = time.perf_counter() - t0
+
+    calls = dict.fromkeys(LARGE_PROGRAMS, 0)
+    peaks, phase_ms = [], {}
+    reals = {name: getattr(A, name) for name in LARGE_PROGRAMS}
+    real_dispatch = D.dispatch_tick_batch
+
+    def wrap(name):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            if name != "alignatt_tick_anchor_group":
+                return reals[name](*a, **k)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = reals[name](*a, **k)
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated())
+            return out
+        return wrapped
+
+    def timed_dispatch(*a, **k):
+        pends = []
+        for mk, idxs, fetch, t_g in real_dispatch(*a, **k):
+            def timed(fetch=fetch, mk=mk, t_g=t_g):
+                res = fetch()
+                phase_ms.setdefault(mk, []).append((time.perf_counter() - t_g) * 1e3)
+                return res
+            pends.append((mk, idxs, timed, t_g))
+        return pends
+
+    for name in LARGE_PROGRAMS:
+        setattr(A, name, wrap(name))
+    D.dispatch_tick_batch = timed_dispatch
+    try:
+        # count only the main path's run from here
+        flash_encoder_attn.launches = 0
+        flash_encoder_attn.shapes.clear()
+        xkv_splice.launches = 0
+        engine.scheduler.reset_stats()
+        t1 = time.perf_counter()
+        pcms = [speech_pcm(LARGE_SECONDS, seed=20 + s) for s in range(LARGE_SESSIONS + 1)]
+        procs = [AudioProcessor(transcription_engine=engine) for _ in range(LARGE_SESSIONS)]
+        texts = await asyncio.gather(
+            *(_feed_processor(p, pcm, LARGE_PACE, d) for p, pcm, d in zip(procs, pcms, LARGE_DELAYS)),
+            _feed_websocket(f"http://{host}:{port}/asr", pcms[-1], LARGE_PACE, LARGE_WS_DELAY),
+        )
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = {"flash_encoder_attn": flash_encoder_attn.launches,
+                    "xkv_splice": xkv_splice.launches}
+        shapes = dict(flash_encoder_attn.shapes)
+        stats = engine.scheduler.stats()
+        phases = dict(A.TICK_PHASE_STATS)
+        eng, xkv = engine.scheduler.engine, engine.scheduler.xkv
+        geom = dict(n_audio_ctx=eng.dims.n_audio_ctx, n_text_layer=eng.dims.n_text_layer,
+                    pool_t=xkv.groups[0].k.shape[-1], tail_frames=eng.cfg.enc_tail_frames,
+                    prefix_buckets=eng.prefix_buckets, group_width=xkv.group_width,
+                    refresh_rows=(A.SKV_REFRESH_ROWS, A._skv_full_refresh_rows(eng, xkv.skv_width)))
+    finally:
+        for name, fn in reals.items():
+            setattr(A, name, fn)
+        D.dispatch_tick_batch = real_dispatch
+        await runner.cleanup()
+        TranscriptionEngine.reset()
+    return dict(texts=texts, wall=wall, init_s=init_s, setup_s=setup_s, launches=launches,
+                shapes=shapes, stats=stats, phases=phases, calls=calls, peaks=peaks,
+                phase_ms=phase_ms, geom=geom)
+
+
+def phase_large() -> dict:
+    import tempfile
+
+    from whisperlivekit_tpu_torch.engine.core import get_tokenizer
+    from whisperlivekit_tpu_torch.harness.vocab import install_standin_vocab
+
+    def tok_for(dims):
+        return get_tokenizer(True, num_languages=dims.num_languages, language="en", task="transcribe")
+
+    with tempfile.TemporaryDirectory(prefix="wlk_vocab_") as vocab_dir:
+        install_standin_vocab(vocab_dir)
+        phase_reference_large(tok_for)
+        torch.cuda.empty_cache()
+        run = asyncio.run(_main_path_large())
+    stats = run["stats"]
+    words = [sum(len(t.split()) for t in texts) for texts in run["texts"]]
+    shapes = {f"{s}x{t}": n for (s, t), n in sorted(run["shapes"].items())}
+    log("large", model="random:large-v3 bf16", group_width=LG, sessions=len(words),
+        audio_s_each=LARGE_SECONDS, pace=LARGE_PACE, words_per_session=words,
+        wall_s=round(run["wall"], 3), engine_init_s=round(run["init_s"], 3),
+        setup_s=round(run["setup_s"], 3), ticks=stats["n_ticks"],
+        avg_lanes=stats["avg_lanes_per_tick"], tick_ms_p50=stats["tick_ms_p50"],
+        tick_ms_p95=stats["tick_ms_p95"], word_emission_p50_ms=stats["word_emission_p50_ms"],
+        word_emission_p95_ms=stats["word_emission_p95_ms"], failed_ticks=stats["n_failed_ticks"])
+    for key, ms in sorted(run["phase_ms"].items()):
+        log("large", tick_phase=key, n=len(ms), p50_ms=_quantile(ms, 0.5), p95_ms=_quantile(ms, 0.95),
+            mean_lanes=stats["tick_phases"].get(key, {}).get("mean_lanes"))
+    log("large", programs=run["calls"], anchor_reasons=stats["anchor_reasons"],
+        xkv=stats.get("xkv"),
+        anchor_group_peak_GB=round(max(run["peaks"]) / 2**30, 3) if run["peaks"] else None)
+    log("large", kernel="flash_encoder_attn", launches=run["launches"]["flash_encoder_attn"],
+        launches_by_SxT=shapes)
+    log("large", kernel="xkv_splice", launches=run["launches"]["xkv_splice"])
+    if stats["n_failed_ticks"]:
+        raise AssertionError(f"{stats['n_failed_ticks']} batch ticks failed")
+    if "pool_recovery" in run["phases"]:
+        raise AssertionError(f"a lane group recovered: {run['phases']['pool_recovery']}")
+    if not all(words):
+        raise AssertionError(f"a session got no words: {words}")
+    if not all(run["calls"].values()):
+        raise AssertionError(f"a pooled program never ran: {run['calls']}")
+    if not all(run["launches"].values()):
+        raise AssertionError(f"a kernel never launched: {run['launches']}")
+    if not (run["shapes"].get((1500, 1500)) and run["shapes"].get((160, 160))):
+        raise AssertionError(f"K1 did not launch at the encoder's call sites: {shapes}")
+    log("large", geometry=run["geom"])
+    return run
+
+
 def main() -> int:
     watch = LogWatch()
     logging.getLogger().addHandler(watch)
     card = phase_device()
     records = phase_kernels()
-    launches = phase_main()
+    base_launches = phase_main()
+    large = phase_large()
+    large_launches = large["launches"]
+    large_records = phase_kernels_large(large["geom"], large["shapes"])
     logging.getLogger().removeHandler(watch)
     log("log", failures=len(watch.failures), expected_notices=watch.expected)
     if watch.failures:
@@ -374,14 +716,26 @@ def main() -> int:
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
     if jax_mods:
         raise AssertionError(f"the port's run imported JAX: {jax_mods[:5]}")
-    k = records[(1500, 1500, "bfloat16")]
-    print(json.dumps({"kernels": [{
-        "name": "flash_encoder_attn", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for key, r in records.items() if key[2] == "bfloat16"),
-        "ms": k["ms"], "plain_ms": k["plain_ms"],
-        "timed_shape": f"B{B}xH{H}xS1500xT1500xDh{DH} bf16",
-    }]}), flush=True)
+    k1_errs = [r["max_abs_err"] for key, r in records.items() if key[2] == "bfloat16"]
+    k1_errs += [r["max_abs_err"] for key, r in large_records.items()
+                if key[0] == "flash_encoder_attn" and key[3] == "bfloat16"]
+    k1 = large_records[("flash_encoder_attn", 1500, 1500, "bfloat16")]
+    G = large["geom"]["group_width"]
+    k2 = large_records[("xkv_splice", G, "bfloat16")]
+    launches = {"flash_encoder_attn": {"base": base_launches,
+                                       "large": large_launches["flash_encoder_attn"]},
+                "xkv_splice": {"large": large_launches["xkv_splice"]}}
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
+         "launches": sum(launches[name].values()), "launches_by_path": launches[name], **rec}
+        for name, rec in (
+            ("flash_encoder_attn", dict(max_abs_err=max(k1_errs), ms=k1["ms"], plain_ms=k1["plain_ms"],
+                                        timed_shape=f"B{G}xH{LH}xS1500xT1500xDh{DH} bf16")),
+            ("xkv_splice", dict(max_abs_err=0.0, ms=k2["ms"], plain_ms=k2["plain_ms"],
+                                timed_shape=f"{large['geom']['n_text_layer']}x{G}x{LH}x{DH}"
+                                            f"x{large['geom']['pool_t']} bf16")),
+        )
+    ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

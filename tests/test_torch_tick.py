@@ -231,7 +231,7 @@ def test_engine_refuses_what_is_not_ported(engines):
     _, te, tok = engines
     for kw, what in ((dict(language="auto"), "decoding/task.py"),
                      (dict(language="en", mel_pallas=True), "mel_pallas"),
-                     (dict(language="en", xkv_cache=True), "xkv_splice"),
+                     (dict(language="en", xkv_cache_dtype="f8"), "9.1"),
                      (dict(language="en", decoder_type="beam", beam_size=4), "alignatt_beam")):
         with pytest.raises(NotImplementedError, match=what):
             TA.AlignAttEngine(te.model, DIMS, tok, TA.AlignAttConfig(**kw))

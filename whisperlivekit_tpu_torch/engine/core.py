@@ -112,7 +112,11 @@ class SimulStreamingASR:
             xkv_cache={"on": True, "off": False}.get(
                 getattr(config, "xkv_cache", "auto"), "auto"
             ),
+            xkv_cache_dtype=getattr(config, "xkv_cache_dtype", "bf16"),
+            anchor_cohorts=int(getattr(config, "xkv_anchor_cohorts", 1) or 1),
             max_steps=int(getattr(config, "max_decode_steps", 32) or 32),
+            serving_prefix_cap=int(getattr(config, "serving_prefix_cap", 0) or 0),
+            serving_commit_budget=int(getattr(config, "serving_commit_budget", 16)),
         )
         self.engine = AlignAttEngine(
             model, dims, self.tokenizer, self.cfg, model_name=model_name,

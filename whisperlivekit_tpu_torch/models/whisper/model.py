@@ -6,6 +6,8 @@ signatures and layouts, so the parity tests compare like with like:
 
 - ``encode(model, mel, dims, pos_start)``: mel [B, n_mels, 2F] -> [B, F, D];
 - ``cross_kv``: [L, B, T, H, Dh], or [L, B, H, Dh, T] when transposed;
+- ``cross_kv_into_pool``: the transposed projection written layer by layer
+  into a group pool [L, G, H, Dh, Tp] IN PLACE (JAX donates the pool);
 - ``KVCache``: [L, B, W, H, Dh], written IN PLACE by ``decode`` (the JAX
   version returns a new cache; here the returned cache is the argument);
 - ``decode``: per-lane ``pos``, ``align_reduce``, ``t_valid`` and
@@ -414,6 +416,35 @@ def cross_kv(
             ks.append(k)
             vs.append(v)
     return CrossKV(k=torch.stack(ks), v=torch.stack(vs))
+
+
+def cross_kv_into_pool(
+    model: Whisper,
+    enc: torch.Tensor,      # [G, T, D]
+    pool_k: torch.Tensor,   # [L, G, H, Dh, Tp], written IN PLACE
+    pool_v: torch.Tensor,
+    dims: ModelDimensions,
+    active: Optional[torch.Tensor] = None,  # [G] bool: slots to (re)write
+) -> CrossKV:
+    """Project the full-window cross-KV directly into a group pool, one
+    layer at a time (transposed layout), so the transient is one layer's
+    K or V rather than a dense [L,G,H,Dh,T] copy beside the pool. Columns
+    T..Tp are zeroed; inactive slots keep every bit. Returns the pools."""
+    n_head = dims.n_text_head
+    G, T_, _ = enc.shape
+    Tp = pool_k.shape[-1]
+    keep = None if active is None else active.bool()[:, None, None, None]
+    for layer_i, bp in enumerate(model.decoder.blocks):
+        for pool, p in ((pool_k, bp.cross.k), (pool_v, bp.cross.v)):
+            out = _linear_f32(enc, p.weight)  # [G, T, D] f32
+            if p.bias is not None:
+                out = out + p.bias.float()
+            out = out.transpose(1, 2).reshape(G, n_head, -1, T_)
+            out = F.pad(out, (0, Tp - T_)).to(pool.dtype)
+            if keep is not None:
+                out = torch.where(keep, out, pool[layer_i])
+            pool[layer_i] = out
+    return CrossKV(k=pool_k, v=pool_v)
 
 
 class AlignSpec(NamedTuple):

@@ -6,7 +6,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface; it is compiled with
 the source and the flags, and loaded with ``ctypes``. No PyTorch header is
 included, so a build takes seconds rather than minutes.
 
-Nothing here runs at import time: the first kernel launch builds.
+Nothing here runs at import time: the first kernel launch builds. A kernel
+that does not build, load or launch raises ``KernelError``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,15 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+
+class KernelError(Exception):
+    """A hand-written kernel failed to build, load or launch. Deliberately
+    not a ``RuntimeError``: the pooled-program containment
+    (``pools._dispatch_pooled_recovering``) catches ``RuntimeError`` to
+    survive running out of device memory, and must not serve a broken
+    kernel's ticks through a program that does not run it."""
+
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -39,7 +49,7 @@ def find_nvcc() -> str:
     ):
         if cand and os.path.isfile(cand):
             return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    raise KernelError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
 def library_path(name: str) -> Path:
@@ -64,7 +74,7 @@ def build(name: str) -> Path:
             capture_output=True, text=True, timeout=600,
         )
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+            raise KernelError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
         out.with_suffix(".ptxas.txt").write_text(proc.stderr)
         os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     finally:
@@ -77,5 +87,9 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(str(build(name)))
+            path = build(name)
+            try:
+                lib = _libs[name] = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise KernelError(f"cannot load {path.name}: {e}") from e
         return lib

@@ -22,6 +22,8 @@ from collections import Counter
 
 import torch
 
+from .cuda_build import KernelError, load
+
 _SUPPORTED = (torch.float32, torch.bfloat16)
 
 
@@ -76,8 +78,6 @@ def _check_cuda_args(q, k, v, t_valid, v_transposed):
 
 
 def _lib():
-    from .cuda_build import load
-
     lib = load("flash_encoder")
     if not getattr(lib, "_wlk_bound", False):
         lib.wlk_flash_encoder_attn.argtypes = [
@@ -126,7 +126,7 @@ def flash_encoder_attn(
     )
     if rc != 0:
         why = "unsupported arguments" if rc < 0 else lib.wlk_cuda_error_string(rc).decode()
-        raise RuntimeError(f"flash_encoder_attn launch failed ({rc}): {why}")
+        raise KernelError(f"flash_encoder_attn launch failed ({rc}): {why}")
     flash_encoder_attn.launches += 1
     flash_encoder_attn.shapes[(S, T)] += 1
     return out

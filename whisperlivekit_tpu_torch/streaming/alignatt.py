@@ -1,5 +1,5 @@
 """AlignAtt / SimulStreaming tick programs in PyTorch (port of
-whisperlivekit_tpu/streaming/alignatt.py, base form).
+whisperlivekit_tpu/streaming/alignatt.py).
 
 One *tick* decodes B lanes at once: mel -> encoder -> cross-KV -> prefill
 (prefix) -> up to ``max_steps`` of (filter -> DRY -> argmax -> attention
@@ -12,9 +12,14 @@ laid out exactly as the JAX one.
 
 The base form (models below d=1280) runs ``alignatt_tick_anchor`` (full
 window, refreshes the lane's cached encoder rows) and ``alignatt_tick_inc``
-(re-encodes only the window tail over the cached rows). The large form's
-pooled programs (cross-KV and self-KV group pools, ``xkv_splice``) are not
-ported yet: ``AlignAttEngine`` refuses configurations that need them.
+(re-encodes only the window tail over the cached rows). The large form
+keeps cross-KV and self-KV pools resident per lane group (XKVGroupPool):
+``alignatt_tick_anchor_group`` / ``alignatt_tick_anchor_pooled`` (re)seed
+them, and the steady ``alignatt_tick_inc_skv`` splices the re-projected
+tail into the cross-KV pool (``ops/xkv_merge.xkv_splice``, kernel K2) and
+replaces the prefill by a few refresh rows against the self-KV pool. Where
+the JAX programs donate the pools and return new ones, these update the
+group's tensors IN PLACE and return them.
 """
 
 from __future__ import annotations
@@ -44,16 +49,18 @@ RUNNING, STOP_EOT, STOP_GATE, STOP_REWIND, STOP_NOSPEECH, STOP_CAP, STOP_CTX = r
 # at least the last XKV_WRITE_BLOCK columns of each lane's window.
 XKV_WRITE_BLOCK = 128
 
-#: rows per self-KV refresh decode of the large form's pooled tick; the host
-#: session plan reads it (the pooled tick itself is not ported yet)
+#: rows per self-KV refresh decode (alignatt_tick_inc_skv): slot 0 re-decodes
+#: the sot row (fresh no_speech_p), slot R-1 the last prefix row (fresh
+#: first-token logits + gate attention); the middle slots absorb this tick's
+#: prefix delta. A multiple of 8, so the refresh decode takes the flash
+#: prefill path; longer deltas take the full-width refresh plan or an anchor.
 SKV_REFRESH_ROWS = 8
 
 
 @dataclass
 class AlignAttConfig:
     """Policy knobs (reference simul_whisper/config.py:5-23): the JAX
-    package's AlignAttConfig fields and defaults, without the large form's
-    pool settings."""
+    package's AlignAttConfig fields and defaults."""
 
     segment_length: float = 0.5
     frame_threshold: int = 25
@@ -78,6 +85,11 @@ class AlignAttConfig:
     xkv_transposed: bool = True   # [B,H,Dh,T] cross-KV layout
     mel_pallas: bool = False      # fused log-mel kernel (K3): not ported yet
     xkv_cache: object = "auto"    # large-form group cross-KV cache: "auto" = d>=1280
+    xkv_cache_dtype: str = "bf16"  # "bf16" = the params dtype; "f8": not ported yet
+    xkv_budget_bytes: int = 9 << 30  # device-memory cap for all groups' pools
+    anchor_cohorts: int = 1       # stagger group re-anchors over this many sub-epochs
+    serving_prefix_cap: int = 0   # pooled-serving decode-prefix cap; 0 = auto (96 with xkv)
+    serving_commit_budget: int = 16  # self-KV pool rows past the cap for mid-epoch commits
 
 
 # ---------------------------------------------------------------------------
@@ -96,7 +108,7 @@ def dry_penalty(logits: torch.Tensor, tokens: torch.Tensor, cur_len: torch.Tenso
     tokens = tokens.long()
     end = cur_len.long()[:, None] - 1                     # [B,1] suffix end
     idx = torch.arange(L, device=tokens.device)[None, :]  # [1,L]
-    last = tokens.gather(1, end)                          # [B,1]
+    last = tokens.gather(1, end % L)  # [B,1]; an empty lane wraps, as in JAX
 
     # candidate positions i: tokens[i] == last, i < cur_len-1, next is text
     next_tok = torch.roll(tokens, -1, dims=1)
@@ -173,12 +185,35 @@ def _tick_core(
     use_cif: bool = False,
     xkv_f8: bool = False,
     xkv_transposed: bool = True,
+    xkv_pre: Optional[wm.CrossKV] = None,
+    xkv_t_valid: Optional[int] = None,
+    skv: Optional[dict] = None,
+    cache_width: Optional[int] = None,
+    return_state: bool = False,
 ):
     """The decode phase of one streaming tick (everything after encoding).
     Returns the packed int32 outputs [B, 2*max_steps + 5]: tokens | frames |
-    n_keep | reason | last_attend | fire | no_speech_p (f32 bits)."""
-    B = enc.shape[0]
-    dev = prefix.device
+    n_keep | reason | last_attend | fire | no_speech_p (f32 bits).
+
+    ``xkv_pre`` supplies precomputed cross-attention K/V (a group pool, or a
+    dense projection); the full-window projection is then skipped and
+    ``enc`` may be None (CIF excepted). ``xkv_t_valid`` masks the pool's
+    padding columns.
+
+    ``skv`` supplies the group's persistent decoder state: ``cache``
+    (KVCache [L,G,Wc,H,Dh], written in place), ``asum``/``asq``/``alast``
+    ([G,K,T] f32), ``acount`` ([G] f32), ``tok`` ([G,n_text_ctx] int32),
+    ``refresh_tokens``/``refresh_pos`` ([G,R]). The full-prefix prefill is
+    then replaced by an R-row refresh decode: slot 0 (the sot row) gives
+    no_speech_p, slot R-1 (the last prefix row) the first logits and the
+    gate input; older rows ride on the cached K/V. Lanes that are not
+    active park their loop writes on the scratch row Wc-1.
+
+    ``return_state=True`` also returns (cache, (asum, asq, acount, alast),
+    tokens [B,n_text_ctx] int32), so the pooled programs can (re)seed the
+    pools."""
+    B = enc.shape[0] if enc is not None else xkv_pre.k.shape[1]
+    dev = prefix_len.device
     align = wm.AlignSpec(layers=align_layers.long(), heads=align_heads.long())
     T = dims.n_audio_ctx
     bidx = torch.arange(B, device=dev)
@@ -209,24 +244,57 @@ def _tick_core(
 
     if xkv_f8:
         raise NotImplementedError("xkv_f8 (f8 cross-KV storage) is not ported yet")
-    xkv = wm.cross_kv(model, enc, dims, transposed=xkv_transposed)
-    cache = wm.init_cache(dims, B, dtype=model.dtype, width=p_max + max_steps + 1, device=dev)
-    # prefill with in-loop alignment reductions: running stats over the real
-    # prefix rows + the last row's attention, all [B,K,T]
-    rows = torch.arange(p_max, device=dev)[None, :]
-    row_mask = (rows < prefix_len[:, None]).float()
-    last_onehot = (rows == (prefix_len - 1)[:, None]).float()
-    prefill_logits, (asum, asq, last_row), cache = wm.decode(
-        model, prefix, torch.zeros((B,), dtype=torch.long, device=dev), xkv, cache, dims,
-        align=align, align_reduce=(row_mask, last_onehot),
-        xkv_transposed=xkv_transposed,
-    )
-    acount = prefix_len.float()
-    no_speech_p = torch.softmax(prefill_logits[bidx, sot_index.long()], dim=-1)[:, no_speech_tok]
-    logits = prefill_logits[bidx, prefix_len - 1]
+    if xkv_pre is not None:
+        xkv = xkv_pre
+    else:
+        xkv = wm.cross_kv(model, enc, dims, transposed=xkv_transposed)
+    zeros_b = torch.zeros((B,), dtype=torch.long, device=dev)
+    if skv is not None:
+        # ---- self-KV pool: R-row refresh instead of prefill ----
+        cache = skv["cache"]
+        r_tok, r_pos = skv["refresh_tokens"].long(), skv["refresh_pos"].long()
+        R = r_tok.shape[1]
+        w_zero = torch.zeros((B, R), device=dev)
+        w_last = (torch.arange(R, device=dev)[None, :] == R - 1).float() * active_in.float()[:, None]
+        refresh_logits, (_, _, fresh_last), cache = wm.decode(
+            model, r_tok, zeros_b, xkv, cache, dims,
+            align=align, align_reduce=(w_zero, w_last),
+            xkv_transposed=xkv_transposed, t_valid=xkv_t_valid,
+            positions_override=r_pos,
+        )
+        asum, asq, acount = skv["asum"], skv["asq"], skv["acount"]
+        last_row = torch.where(active_in[:, None, None], fresh_last, skv["alast"])
+        no_speech_p = torch.softmax(refresh_logits[:, 0], dim=-1)[:, no_speech_tok]
+        logits = refresh_logits[:, R - 1]
+        # heal the token mirror: scatter the refresh rows' tokens. Padding
+        # rows share the scratch position and all write eot (inactive
+        # lanes write back what is there), so duplicates agree.
+        tokens = skv["tok"].long()
+        r_idx = r_pos.clamp(max=dims.n_text_ctx - 1)
+        tokens[bidx[:, None], r_idx] = torch.where(active_in[:, None], r_tok, tokens.gather(1, r_idx))
+    else:
+        cache = wm.init_cache(
+            dims, B, dtype=model.dtype, width=cache_width or (p_max + max_steps + 1), device=dev
+        )
+        # prefill with in-loop alignment reductions: running stats over the
+        # real prefix rows + the last row's attention, all [B,K,T]
+        rows = torch.arange(p_max, device=dev)[None, :]
+        row_mask = (rows < prefix_len[:, None]).float()
+        last_onehot = (rows == (prefix_len - 1)[:, None]).float()
+        prefill_logits, (asum, asq, last_row), cache = wm.decode(
+            model, prefix, zeros_b, xkv, cache, dims,
+            align=align, align_reduce=(row_mask, last_onehot),
+            xkv_transposed=xkv_transposed, t_valid=xkv_t_valid,
+        )
+        acount = prefix_len.float()
+        no_speech_p = torch.softmax(prefill_logits[bidx, sot_index.long()], dim=-1)[:, no_speech_tok]
+        logits = prefill_logits[bidx, prefix_len - 1]
 
-    tokens = torch.full((B, dims.n_text_ctx), eot, dtype=torch.long, device=dev)
-    tokens[:, :p_max] = prefix.long()
+        tokens = torch.full((B, dims.n_text_ctx), eot, dtype=torch.long, device=dev)
+        tokens[:, :p_max] = prefix.long()
+    # lanes without work this tick park their loop writes on the pool's
+    # scratch row instead of their pooled rows
+    scratch = cache.k.shape[2] - 1 if skv is not None else None
 
     active = active_in.clone()
     n_keep = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -264,7 +332,9 @@ def _tick_core(
 
         # ---- stop decisions ----
         nospeech_stop = (no_speech_p > nonspeech_prob) if k == 0 else torch.zeros_like(active)
-        prev_tok = tokens.gather(1, (cur_len - 1)[:, None])[:, 0]
+        # a lane with an empty prefix (an absent pool slot) wraps to the
+        # last column, as JAX's negative indices do
+        prev_tok = tokens.gather(1, ((cur_len - 1) % dims.n_text_ctx)[:, None])[:, 0]
         special_exempt = prev_tok >= DEC_PAD
         rewind_cond = (~is_last) & (last_attend.long() - frame > rewind_threshold)
         do_rewind = rewind_cond & ~special_exempt
@@ -307,9 +377,10 @@ def _tick_core(
         # step's decoder pass would produce outputs no one reads — skip it
         running = k + 1 < max_steps and bool(active.any())
         if running:
+            pos_d = pos_w if scratch is None else torch.where(active_in, pos_w, scratch)
             new_logits, step_aprobs, cache = wm.decode(
-                model, tok[:, None], pos_w, xkv, cache, dims, align=align,
-                xkv_transposed=xkv_transposed,
+                model, tok[:, None], pos_d, xkv, cache, dims, align=align,
+                xkv_transposed=xkv_transposed, t_valid=xkv_t_valid,
             )
             step_row = step_aprobs.transpose(0, 1)[:, :, 0, :]  # [B,K,T]
             logits = new_logits[:, 0]
@@ -325,7 +396,7 @@ def _tick_core(
     # lanes still active at loop exhaustion keep everything they decoded
     reason = torch.where(active, STOP_CAP, reason).to(torch.int32)
     n_keep = torch.where(active, max_steps, n_keep).to(torch.int32)
-    return torch.cat(
+    packed = torch.cat(
         [
             new_tokens,
             frames,
@@ -337,6 +408,9 @@ def _tick_core(
         ],
         dim=1,
     )
+    if return_state:
+        return packed, (cache, (asum, asq, acount, last_row), tokens.to(torch.int32))
+    return packed
 
 
 def alignatt_tick(
@@ -431,6 +505,29 @@ def alignatt_tick_inc(
     full cached window.
 
     Returns (packed outputs, enc_pool)."""
+    enc_rows, compute_dtype = _encode_tail_into_rows(
+        model, audio_pool, enc_pool, audio_lanes, enc_lanes, tail_start, win_frames,
+        write_start, dims, tail_frames,
+    )
+    outs = _tick_core(
+        model, enc_rows.to(compute_dtype), prefix, prefix_len, sot_index,
+        content_frames, last_attend, is_last, max_new, suppress_mask,
+        align_layers, align_heads, frame_threshold, rewind_threshold,
+        nonspeech_prob, active_in, cif_w, cif_b, dims, p_max, max_steps, eot,
+        ts_begin, no_speech_tok, space_tok, use_cif, xkv_f8, xkv_transposed,
+    )
+    return (outs, enc_pool)
+
+
+def _encode_tail_into_rows(
+    model, audio_pool, enc_pool, audio_lanes, enc_lanes, tail_start, win_frames,
+    write_start, dims, tail_frames,
+):
+    """The incremental ticks' encode: slice each lane's audio tail on the
+    device, encode it at absolute positions, and write frames
+    [write_start, win_frames) (widened to the last XKV_WRITE_BLOCK frames)
+    over the lane's cached rows in ``enc_pool``, in place. Returns the
+    updated rows [B, T, D] (pool dtype) and the encoder's dtype."""
     B = audio_lanes.shape[0]
     T = dims.n_audio_ctx
     D = dims.n_audio_state
@@ -463,15 +560,250 @@ def alignatt_tick_inc(
     in_write = (t_idx >= ws_eff[:, None]) & (t_idx < win_frames[:, None])
     enc_rows = torch.where(in_write[:, :, None], fresh, cached)
     enc_pool[enc_lanes] = enc_rows
+    return enc_rows, enc_tail.dtype
 
-    outs = _tick_core(
-        model, enc_rows.to(enc_tail.dtype), prefix, prefix_len, sot_index,
-        content_frames, last_attend, is_last, max_new, suppress_mask,
-        align_layers, align_heads, frame_threshold, rewind_threshold,
-        nonspeech_prob, active_in, cif_w, cif_b, dims, p_max, max_steps, eot,
-        ts_begin, no_speech_tok, space_tok, use_cif, xkv_f8, xkv_transposed,
+
+def _splice_window_into_pool(model, enc_rows, xkv_k, xkv_v, win_frames, dims, compute_dtype):
+    """Project the aligned splice window [dst0, dst0 + W_SPLICE) of the
+    UPDATED encoder rows and splice it into the cross-KV pools in place
+    (kernel K2). Columns of the window that were already synced are
+    re-projections of their own cached rows, so the pool equals a full
+    re-projection of the rows."""
+    from ..ops.xkv_merge import W_SPLICE, splice_dst0, xkv_splice
+
+    G, T, D = enc_rows.shape
+    dst0 = splice_dst0(win_frames.long(), xkv_k.shape[-1])  # [G], 128-aligned
+    w_idx = dst0[:, None] + torch.arange(W_SPLICE, device=enc_rows.device)[None, :]
+    window_rows = enc_rows.gather(
+        1, w_idx.clamp(max=T - 1)[:, :, None].expand(G, W_SPLICE, D)
+    ).to(compute_dtype)  # [G, 256, D]
+    fresh = wm.cross_kv(model, window_rows, dims, transposed=True)
+    xkv_splice(xkv_k, xkv_v, fresh.k, fresh.v, win_frames)
+
+
+def _pool_t_valid(dims, xkv_k) -> Optional[int]:
+    return dims.n_audio_ctx if xkv_k.shape[-1] > dims.n_audio_ctx else None
+
+
+def alignatt_tick_inc_pooled(
+    model,
+    audio_pool,            # [W, N] int16: device-resident audio windows
+    xkv_k,                 # [L, G, H, Dh, Tp]: the group's cross-KV pool (in place)
+    xkv_v,                 # [L, G, H, Dh, Tp]
+    enc_pool,              # [cap, T, D]: cached encoder frames (in place)
+    audio_lanes,           # [G] audio pool rows, slot order
+    enc_lanes,             # [G] enc_pool rows, slot order
+    tail_start,            # [G] first encoder frame of the re-encoded tail
+    win_frames,            # [G] current window extent (0 = inactive slot)
+    write_start,           # [G] first frame whose features are (re)written
+    prefix, prefix_len, sot_index, content_frames, last_attend, is_last,
+    max_new, suppress_mask, align_layers, align_heads, frame_threshold,
+    rewind_threshold, nonspeech_prob, active_in, cif_w, cif_b,
+    dims, p_max, max_steps, eot, ts_begin, no_speech_tok, space_tok,
+    use_cif=False, xkv_f8=False, xkv_transposed=True, mel_pallas=False,
+    tail_frames: int = 160,
+):
+    """Incremental tick over a group-resident cross-KV pool, with a
+    full-prefix prefill: (1) re-encode the window tail into the cached
+    encoder rows (as alignatt_tick_inc); (2) project the aligned 256-column
+    splice window of the updated rows and splice it into the pool (K2);
+    (3) decode straight off the pool, its padding columns masked. Slot order
+    is batch order. ``write_start`` must lie inside the splice window (the
+    session plan re-anchors on longer catch-up bursts).
+
+    The pools are updated in place. Returns (packed outputs, xkv_k, xkv_v,
+    enc_pool)."""
+    if use_cif:
+        raise ValueError("CIF needs full-window encoder features; use the EncPool path")
+    enc_rows, compute_dtype = _encode_tail_into_rows(
+        model, audio_pool, enc_pool, audio_lanes, enc_lanes, tail_start, win_frames,
+        write_start, dims, tail_frames,
     )
-    return (outs, enc_pool)
+    _splice_window_into_pool(model, enc_rows, xkv_k, xkv_v, win_frames, dims, compute_dtype)
+    outs = _tick_core(
+        model, None, prefix, prefix_len, sot_index, content_frames,
+        last_attend, is_last, max_new, suppress_mask, align_layers,
+        align_heads, frame_threshold, rewind_threshold, nonspeech_prob,
+        active_in, cif_w, cif_b, dims, p_max, max_steps, eot, ts_begin,
+        no_speech_tok, space_tok, use_cif, xkv_f8, xkv_transposed,
+        xkv_pre=wm.CrossKV(k=xkv_k, v=xkv_v), xkv_t_valid=_pool_t_valid(dims, xkv_k),
+    )
+    return (outs, xkv_k, xkv_v, enc_pool)
+
+
+def alignatt_tick_inc_skv(
+    model,
+    audio_pool,            # [W, N] int16: device-resident audio windows
+    xkv_k,                 # [L, G, H, Dh, Tp]: group cross-KV pool (in place)
+    xkv_v,
+    enc_pool,              # [cap, T, D]: cached encoder frames (in place)
+    skv_k,                 # [L, G, Wc, H, Dh]: group decoder self-KV (in place)
+    skv_v,
+    asum,                  # [G, K, T] f32: gate-stat running sums (in place)
+    asq,
+    alast,                 # [G, K, T] f32: last attended row (in place)
+    acount,                # [G] f32 (in place)
+    tok_pool,              # [G, n_text_ctx] int32: cache-row token mirror (in place)
+    audio_lanes,           # [G] audio pool rows, slot order
+    enc_lanes,             # [G]
+    tail_start,            # [G] first encoder frame of the re-encoded tail
+    win_frames,            # [G] current window extent (0 = inactive slot)
+    write_start,           # [G] first frame whose features are (re)written
+    refresh_tokens,        # [G, R]: slot 0 = sot row, slot R-1 = last prefix row
+    refresh_pos,           # [G, R]: cache positions (Wc-1 = scratch padding)
+    prefix_len, content_frames, last_attend, is_last,
+    max_new, suppress_mask, align_layers, align_heads, frame_threshold,
+    rewind_threshold, nonspeech_prob, active_in, cif_w, cif_b,
+    dims, max_steps, eot, ts_begin, no_speech_tok, space_tok,
+    xkv_f8=False, xkv_transposed=True,
+    tail_frames: int = 160,
+):
+    """Steady-state tick over both persistent pools: on top of
+    alignatt_tick_inc_pooled's tail re-encode and cross-KV splice (K2), the
+    full-prefix prefill is replaced by an R-row refresh decode against the
+    group's self-KV pool. Committed tokens' K/V rows persist across ticks;
+    the refresh re-decodes the sot row (fresh no_speech_p) and the last
+    prefix rows (fresh first logits and gate attention) over the updated
+    audio, and every anchor rebuilds the rows exactly. One program shape per
+    (G, steps, tail, R) serves every prefix length.
+
+    Every pool is updated in place (the JAX program donates them). Returns
+    (outs, xkv_k, xkv_v, enc_pool, skv_k, skv_v, asum, asq, alast, acount,
+    tok_pool)."""
+    enc_rows, compute_dtype = _encode_tail_into_rows(
+        model, audio_pool, enc_pool, audio_lanes, enc_lanes, tail_start, win_frames,
+        write_start, dims, tail_frames,
+    )
+    _splice_window_into_pool(model, enc_rows, xkv_k, xkv_v, win_frames, dims, compute_dtype)
+    skv = dict(
+        cache=wm.KVCache(k=skv_k, v=skv_v),
+        asum=asum, asq=asq, acount=acount, alast=alast, tok=tok_pool,
+        refresh_tokens=refresh_tokens, refresh_pos=refresh_pos,
+    )
+    packed, (_, (n_asum, n_asq, n_acount, n_alast), n_tok) = _tick_core(
+        model, None, None, prefix_len, None, content_frames,
+        last_attend, is_last, max_new, suppress_mask, align_layers,
+        align_heads, frame_threshold, rewind_threshold, nonspeech_prob,
+        active_in, cif_w, cif_b, dims, 0, max_steps, eot, ts_begin,
+        no_speech_tok, space_tok, False, xkv_f8, xkv_transposed,
+        xkv_pre=wm.CrossKV(k=xkv_k, v=xkv_v), xkv_t_valid=_pool_t_valid(dims, xkv_k),
+        skv=skv, return_state=True,
+    )
+    # inactive lanes carry their stats through unchanged, so whole copies
+    # equal the JAX program's outputs
+    asum.copy_(n_asum)
+    asq.copy_(n_asq)
+    alast.copy_(n_alast)
+    acount.copy_(n_acount)
+    tok_pool.copy_(n_tok)
+    return (
+        packed, xkv_k, xkv_v, enc_pool, skv_k, skv_v,
+        asum, asq, alast, acount, tok_pool,
+    )
+
+
+def alignatt_tick_anchor_pooled(
+    model, audio, xkv_k, xkv_v, enc_pool,
+    skv_k, skv_v, asum, asq, alast, acount, tok_pool,
+    enc_lanes, slots,
+    prefix, prefix_len, sot_index, content_frames, last_attend, is_last,
+    max_new, suppress_mask, align_layers, align_heads, frame_threshold,
+    rewind_threshold, nonspeech_prob, active_in, cif_w, cif_b,
+    dims, p_max, max_steps, eot, ts_begin, no_speech_tok, space_tok,
+    use_cif=False, xkv_f8=False, xkv_transposed=True, mel_pallas=False,
+):
+    """Full-window tick for a chunk of a group's lanes (session join,
+    resets): ``slots`` maps each batch lane to its group slot (G for padded
+    lanes, which write nothing). The tick decodes from the freshly computed
+    dense cross-KV (compute dtype, T columns), so its outputs equal the
+    legacy program's; the pools store the pool-dtype cast, zero-padded to
+    Tp, and the prefill (re)seeds the lanes' self-KV, gate-stat and token
+    rows.
+
+    Every pool is updated in place. Returns (outs, pools...) in the order of
+    alignatt_tick_inc_skv."""
+    enc = _tick_front(model, audio, dims, mel_pallas)
+    enc_pool[enc_lanes.long()] = enc.to(enc_pool.dtype)
+    fresh = wm.cross_kv(model, enc, dims, transposed=True)
+    packed, (cache, (n_asum, n_asq, n_acount, n_alast), n_tok) = _tick_core(
+        model, enc, prefix, prefix_len, sot_index, content_frames,
+        last_attend, is_last, max_new, suppress_mask, align_layers,
+        align_heads, frame_threshold, rewind_threshold, nonspeech_prob,
+        active_in, cif_w, cif_b, dims, p_max, max_steps, eot, ts_begin,
+        no_speech_tok, space_tok, use_cif, xkv_f8, xkv_transposed,
+        xkv_pre=fresh, cache_width=skv_k.shape[2], return_state=True,
+    )
+    # the JAX program scatters with mode="drop" (slot G is out of range);
+    # torch indexing raises there, so pick the real lanes first
+    G = xkv_k.shape[1]
+    slots = slots.long()
+    real = slots < G
+    lanes, dst = real.nonzero()[:, 0], slots[real]
+    T = fresh.k.shape[-1]
+    for pool, src in ((xkv_k, fresh.k), (xkv_v, fresh.v)):
+        pool[:, dst, ..., :T] = src[:, lanes].to(pool.dtype)
+        pool[:, dst, ..., T:] = 0
+    skv_k[:, dst] = cache.k[:, lanes].to(skv_k.dtype)
+    skv_v[:, dst] = cache.v[:, lanes].to(skv_v.dtype)
+    asum[dst] = n_asum[lanes]
+    asq[dst] = n_asq[lanes]
+    alast[dst] = n_alast[lanes]
+    acount[dst] = n_acount[lanes]
+    tok_pool[dst] = n_tok[lanes]
+    return (
+        packed, xkv_k, xkv_v, enc_pool,
+        skv_k, skv_v, asum, asq, alast, acount, tok_pool,
+    )
+
+
+def alignatt_tick_anchor_group(
+    model, audio, xkv_k, xkv_v, enc_pool,
+    skv_k, skv_v, asum, asq, alast, acount, tok_pool,
+    enc_lanes,
+    prefix, prefix_len, sot_index, content_frames, last_attend, is_last,
+    max_new, suppress_mask, align_layers, align_heads, frame_threshold,
+    rewind_threshold, nonspeech_prob, active_in, cif_w, cif_b,
+    dims, p_max, max_steps, eot, ts_begin, no_speech_tok, space_tok,
+    use_cif=False, xkv_f8=False, xkv_transposed=True, mel_pallas=False,
+):
+    """Whole-group anchor (slot order is batch order): re-encode every
+    active lane's full window and rebuild the group's cross-KV pool layer by
+    layer (cross_kv_into_pool: one layer's K or V as transient, not a dense
+    [L,G,H,Dh,T] copy). The decode reads the rebuilt pool, and the prefill
+    (re)seeds the active slots' self-KV, gate-stat and token rows; inactive
+    slots keep every pool bit. The scheduler aligns a group's window
+    evictions to a shared epoch, so this runs once per eviction block for
+    the whole group.
+
+    Every pool is updated in place. Returns (outs, pools...) in the order of
+    alignatt_tick_inc_skv."""
+    enc = _tick_front(model, audio, dims, mel_pallas)
+    enc_lanes = enc_lanes.long()
+    keep = active_in[:, None, None]
+    enc_pool[enc_lanes] = torch.where(keep, enc.to(enc_pool.dtype), enc_pool[enc_lanes])
+    pooled = wm.cross_kv_into_pool(model, enc, xkv_k, xkv_v, dims, active=active_in)
+    packed, (cache, (n_asum, n_asq, n_acount, n_alast), n_tok) = _tick_core(
+        model, enc, prefix, prefix_len, sot_index, content_frames,
+        last_attend, is_last, max_new, suppress_mask, align_layers,
+        align_heads, frame_threshold, rewind_threshold, nonspeech_prob,
+        active_in, cif_w, cif_b, dims, p_max, max_steps, eot, ts_begin,
+        no_speech_tok, space_tok, use_cif, xkv_f8, xkv_transposed,
+        xkv_pre=pooled, xkv_t_valid=_pool_t_valid(dims, xkv_k),
+        cache_width=skv_k.shape[2], return_state=True,
+    )
+    sel5 = active_in[None, :, None, None, None]
+    skv_k.copy_(torch.where(sel5, cache.k.to(skv_k.dtype), skv_k))
+    skv_v.copy_(torch.where(sel5, cache.v.to(skv_v.dtype), skv_v))
+    sel3 = active_in[:, None, None]
+    asum.copy_(torch.where(sel3, n_asum, asum))
+    asq.copy_(torch.where(sel3, n_asq, asq))
+    alast.copy_(torch.where(sel3, n_alast, alast))
+    acount.copy_(torch.where(active_in, n_acount, acount))
+    tok_pool.copy_(torch.where(active_in[:, None], n_tok, tok_pool))
+    return (
+        packed, xkv_k, xkv_v, enc_pool,
+        skv_k, skv_v, asum, asq, alast, acount, tok_pool,
+    )
 
 
 # time, by encode-mode partition (exported via BatchScheduler.stats)
@@ -511,18 +843,18 @@ class AlignAttEngine:
                 "language auto-detect needs decoding/task.py, not ported yet; pass a language"
             )
         if cfg.mel_pallas:
-            raise NotImplementedError("mel_pallas needs ops/mel_pallas.py (K3), not ported yet")
-        if cfg.xkv_f8:
-            raise NotImplementedError("xkv_f8 (f8 cross-KV storage) is not ported yet")
+            raise NotImplementedError(
+                "mel_pallas needs ops/mel_pallas.py (K3), not ported yet (ROADMAP queue 2, K3)"
+            )
+        if cfg.xkv_f8 or cfg.xkv_cache_dtype == "f8":
+            raise NotImplementedError(
+                "f8 cross-KV storage (xkv_f8, xkv_cache_dtype='f8') is not ported yet "
+                "(ROADMAP queue 1 item 9.1)"
+            )
         if cfg.decoder_type == "beam" and cfg.beam_size > 1:
             raise NotImplementedError("beam decoding needs streaming/alignatt_beam.py, not ported yet")
         if cfg.xkv_cache == "auto":
             cfg.xkv_cache = bool(dims.n_audio_state >= 1280)
-        if cfg.xkv_cache:
-            raise NotImplementedError(
-                "the large form (XKVGroupPool, ops/xkv_merge.py xkv_splice) is not "
-                "ported yet; set xkv_cache off"
-            )
         self.model = model
         self.device = model.device
         self.dims = dims
@@ -547,10 +879,18 @@ class AlignAttEngine:
         self.prefix_buckets = tuple(
             b for b in self.PREFIX_BUCKETS if b < min(dims.n_text_ctx, top + 1)
         ) or (dims.n_text_ctx // 2,)
-        # the serving prefix cap and commit budget bound the large form's
-        # self-KV pool; the session plan reads them, and they stay off here
-        self.serving_prefix_cap = 0
-        self.serving_commit_budget = 0
+        # pooled-serving prefix cap (AlignAttConfig.serving_prefix_cap): it
+        # sizes the self-KV pool and applies only to sessions wired to an
+        # XKVAllocator; the commit budget adds pool rows past it, so
+        # mid-epoch commits grow the prefix instead of shifting its head
+        cap = int(cfg.serving_prefix_cap or 0)
+        if cap == 0 and bool(cfg.xkv_cache):
+            cap = 96
+        self.serving_prefix_cap = min(cap, dims.n_text_ctx - 20) if cap else 0
+        budget = max(0, int(cfg.serving_commit_budget))
+        if self.serving_prefix_cap:
+            budget = min(budget, dims.n_text_ctx - 20 - self.serving_prefix_cap)
+        self.serving_commit_budget = budget if self.serving_prefix_cap else 0
 
     @staticmethod
     def _load_cif(cfg: AlignAttConfig, dims: ModelDimensions, device):
@@ -597,23 +937,38 @@ class AlignAttEngine:
 # they are served lazily (PEP 562) to avoid an import cycle.
 # ---------------------------------------------------------------------------
 
-from .pools import AudioPool, EncPool, _pool_gather, _pool_update  # noqa: E402,F401
+from .pools import (  # noqa: E402,F401
+    AudioPool,
+    EncPool,
+    XKVAllocator,
+    XKVGroupPool,
+    _dispatch_pooled_recovering,
+    _pool_gather,
+    _pool_update,
+    _recover_group,
+)
 
 _LAZY_EXPORTS = {
     "TokenBufferCtx": "session_plan",
     "TickInputs": "session_plan",
     "TickOutputs": "session_plan",
     "AlignAttSession": "session_plan",
+    "_skv_full_refresh_rows": "session_plan",
     "_collect_lane_arrays": "dispatch",
     "_core_device_args": "dispatch",
     "_gather_full_audio": "dispatch",
     "_scatter_outputs": "dispatch",
     "run_tick_batch": "dispatch",
+    "_timed_pool_update": "dispatch",
     "dispatch_tick_batch": "dispatch",
     "finalize_tick_batch": "dispatch",
     "_dispatch_group_legacy": "dispatch",
+    "_run_group_legacy": "dispatch",
     "_dispatch_group_anchor": "dispatch",
     "_dispatch_group_inc": "dispatch",
+    "_whole_group_anchor_fits": "dispatch",
+    "_dispatch_group_xkv_inc": "dispatch",
+    "_dispatch_group_xkv_anchor": "dispatch",
 }
 
 

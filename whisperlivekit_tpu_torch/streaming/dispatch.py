@@ -1,13 +1,15 @@
 """Batch dispatch layer: pack N sessions' ticks into device programs (port of
-whisperlivekit_tpu/streaming/dispatch.py, base form).
+whisperlivekit_tpu/streaming/dispatch.py).
 
 Routes TickInputs batches to the tick programs in streaming/alignatt.py,
-partitioned by encode mode (legacy / anchor / inc), with the dispatch/fetch
-split of the JAX layer: a dispatch enqueues the group's work on the device
-and returns a closure that fetches the packed outputs to the host. The tick
-programs are looked up through the alignatt module at call time, so tests
-can patch them there. Lanes routed to the large form's group pools raise:
-those programs are not ported yet.
+partitioned by encode mode (legacy / anchor / inc / pooled xkv), with the
+dispatch/fetch split of the JAX layer: a dispatch enqueues the group's work
+on the device and returns a closure that fetches the packed outputs to the
+host, and the whole-group-anchor guard. The tick programs are looked up
+through the alignatt module at call time, so tests and the smoke can wrap
+them there. The JAX layer's
+``precompile_serving_programs`` has no counterpart: nothing compiles ahead
+in eager PyTorch.
 """
 
 from __future__ import annotations
@@ -21,8 +23,8 @@ import torch
 
 from . import alignatt as _A
 from ..audio.mel import N_SAMPLES
-from .alignatt import TICK_PHASE_STATS
-from .pools import AudioPool, EncPool
+from .alignatt import SKV_REFRESH_ROWS, TICK_PHASE_STATS
+from .pools import AudioPool, EncPool, XKVAllocator, _dispatch_pooled_recovering
 from .session_plan import TickInputs, TickOutputs
 
 logger = logging.getLogger(__name__)
@@ -148,8 +150,9 @@ def run_tick_batch(
     common bucket. With an AudioPool, lanes are updated with only their new
     samples, then gathered on the device. With an EncPool, "anchor" lanes
     run the full-window program (and refresh their cached rows), "inc" lanes
-    the tail-encode program, plan-less lanes the legacy program. Outputs
-    return in input order.
+    the tail-encode program, plan-less lanes the legacy program; with an
+    XKVAllocator, lanes holding a group slot run that group's pooled
+    programs. Outputs return in input order.
     """
     return finalize_tick_batch(
         dispatch_tick_batch(engine, ticks, tokenizer, pool, enc_pool, xkv),
@@ -183,10 +186,8 @@ def dispatch_tick_batch(engine, ticks, tokenizer, pool, enc_pool, xkv) -> list:
     groups: dict = {}
     for i, t in enumerate(ticks):
         if t.xkv_slot is not None and xkv is not None:
-            raise NotImplementedError(
-                "pooled cross-KV ticks (the large form) are not ported yet"
-            )
-        if t.enc_lane is not None and enc_pool is not None:
+            key = ("xkv", t.xkv_gi, t.enc_mode)
+        elif t.enc_lane is not None and enc_pool is not None:
             key = t.enc_mode
         else:
             key = None  # plan-less or mis-routed lane: legacy full re-encode
@@ -195,13 +196,25 @@ def dispatch_tick_batch(engine, ticks, tokenizer, pool, enc_pool, xkv) -> list:
     for mode, idxs in groups.items():
         t_g = time.perf_counter()
         group = [ticks[i] for i in idxs]
-        if mode == "inc":
+        if isinstance(mode, tuple):
+            _, gi, enc_mode = mode
+            if enc_mode == "inc":
+                fetch = _dispatch_group_xkv_inc(
+                    engine, group, tokenizer, pool, enc_pool, xkv, gi
+                )
+                xkv.note_group_tick(gi)
+            else:
+                fetch = _dispatch_group_xkv_anchor(
+                    engine, group, tokenizer, pool, enc_pool, xkv, gi
+                )
+        elif mode == "inc":
             fetch = _dispatch_group_inc(engine, group, tokenizer, pool, enc_pool)
         elif mode == "anchor":
             fetch = _dispatch_group_anchor(engine, group, tokenizer, pool, enc_pool)
         else:
             fetch = _dispatch_group_legacy(engine, group, tokenizer, pool)
-        pends.append((mode or "legacy", idxs, fetch, t_g))
+        mk = mode[2] + "_xkv" if isinstance(mode, tuple) else (mode or "legacy")
+        pends.append((mk, idxs, fetch, t_g))
     return pends
 
 
@@ -229,6 +242,10 @@ def _dispatch_group_legacy(engine, ticks, tokenizer, pool):
     args, statics = _core_device_args(engine, arr, tokenizer, p_max)
     raw = _A.alignatt_tick(engine.model, audio, *args, **statics)
     return lambda: _scatter_outputs(raw, n, engine.cfg.max_steps)
+
+
+def _run_group_legacy(engine, ticks, tokenizer, pool) -> List[TickOutputs]:
+    return _dispatch_group_legacy(engine, ticks, tokenizer, pool)()
 
 
 def _dispatch_group_anchor(engine, ticks, tokenizer, pool, enc_pool):
@@ -272,3 +289,193 @@ def _dispatch_group_inc(engine, ticks, tokenizer, pool, enc_pool):
     )
     enc_pool.pool = raw[-1]
     return lambda: _scatter_outputs(raw[0], n, engine.cfg.max_steps)
+
+
+def _whole_group_anchor_fits(xkv: XKVAllocator, gi: int) -> bool:
+    """Guard for the whole-group anchor: only while one group is resident,
+    and never again on a group where it failed. This is the JAX package's
+    fallback for an unknown transient; the JAX guard's budget branch needs
+    XLA's ahead-of-time memory analysis, which eager PyTorch lacks, and
+    the anchor's transient has not been measured on the card yet."""
+    return not xkv.groups[gi].whole_anchor_blocked and len(xkv.groups) == 1
+
+
+def _to_slot_order(arr: dict, slot_of: List[int], G: int) -> dict:
+    """Re-index every per-lane row of ``arr`` from input order to slot
+    order; absent slots keep zero rows (inactive)."""
+    out = {}
+    for k, v in arr.items():
+        o = np.zeros((G,) + v.shape[1:], v.dtype)
+        o[slot_of] = v[: len(slot_of)]
+        out[k] = o
+    return out
+
+
+def _dispatch_group_xkv_inc(engine, ticks, tokenizer, pool, enc_pool, xkv, gi):
+    """Incremental ticks over the group-resident cross-KV and self-KV pools
+    (_A.alignatt_tick_inc_skv: no per-tick prefill, no prefix upload).
+
+    The program always runs at the group's full width in slot order (the
+    decode reads the pool tensors directly). Slots without a submission
+    this window ride along inactive (win_frames=0, active=False, refresh
+    rows parked on the scratch row): their pool rows are untouched and
+    their outputs discarded."""
+    g = xkv.groups[gi]
+    G = g.group_width
+    Wc = g.skv_width
+    # two refresh widths: the slim per-tick delta (SKV_REFRESH_ROWS) and the
+    # full-prefix rebuild; a group tick runs at the widest width any lane
+    # needs, and slim plans pad with scratch rows
+    R = max(len(t.skv_refresh_tokens) for t in ticks)
+    # the prefix itself stays on the host; prefix_len rides to the device
+    # for the loop's position math
+    p_host = max(8, max(len(t.prefix_ids) for t in ticks))
+    slot_of = [t.xkv_slot for t in ticks]
+    arr = _to_slot_order(_collect_lane_arrays(engine, ticks, tokenizer, G, p_host), slot_of, G)
+    audio_lanes = np.zeros(G, np.int64)
+    enc_lanes = np.full(G, EncPool.SCRATCH, np.int64)
+    tail_start = np.zeros(G, np.int64)
+    win_frames = np.zeros(G, np.int64)
+    write_start = np.zeros(G, np.int64)
+    r_tok = np.full((G, R), tokenizer.eot, np.int64)
+    r_pos = np.full((G, R), Wc - 1, np.int64)  # scratch for absent slots
+    for t in ticks:
+        sl = t.xkv_slot
+        audio_lanes[sl] = t.pool_lane
+        enc_lanes[sl] = t.enc_lane
+        tail_start[sl] = t.tail_start
+        win_frames[sl] = t.content_frames
+        write_start[sl] = t.write_start
+        r = len(t.skv_refresh_tokens)
+        if r == R:
+            r_tok[sl] = t.skv_refresh_tokens
+            r_pos[sl] = t.skv_refresh_pos
+        else:
+            # pad a slim plan to the full width: slot 0 (sot row) and the
+            # right-aligned delta rows keep their slots; the middle fills
+            # with scratch rows (the layout is positional only in slots 0
+            # and R-1)
+            r_tok[sl, 0] = t.skv_refresh_tokens[0]
+            r_pos[sl, 0] = t.skv_refresh_pos[0]
+            r_tok[sl, R - (r - 1):] = t.skv_refresh_tokens[1:]
+            r_pos[sl, R - (r - 1):] = t.skv_refresh_pos[1:]
+    cfg = engine.cfg
+    mode_key = "inc_skv" if R == SKV_REFRESH_ROWS else "inc_skv_full"
+    dev = lambda a: _to_device(engine, a)  # noqa: E731
+
+    def call():
+        raw = _A.alignatt_tick_inc_skv(
+            engine.model, pool.pool, g.k, g.v, enc_pool.pool,
+            g.skv_k, g.skv_v, g.asum, g.asq, g.alast, g.acount, g.tok,
+            dev(audio_lanes), dev(enc_lanes), dev(tail_start), dev(win_frames),
+            dev(write_start), dev(r_tok), dev(r_pos),
+            dev(arr["prefix_len"]), dev(arr["content_frames"]),
+            dev(arr["last_attend"]), dev(arr["is_last"]), dev(arr["max_new"]),
+            engine.suppress_mask, engine.align_layers, engine.align_heads,
+            int(cfg.frame_threshold), int(cfg.rewind_threshold),
+            float(cfg.nonspeech_prob), dev(arr["active"]),
+            engine.cif_w, engine.cif_b,
+            dims=engine.dims, max_steps=cfg.max_steps, eot=tokenizer.eot,
+            ts_begin=tokenizer.timestamp_begin, no_speech_tok=tokenizer.no_speech,
+            space_tok=tokenizer.encode(" ")[0],
+            xkv_f8=cfg.xkv_f8, xkv_transposed=getattr(cfg, "xkv_transposed", True),
+            tail_frames=cfg.enc_tail_frames,
+        )
+        (g.k, g.v, enc_pool.pool, g.skv_k, g.skv_v,
+         g.asum, g.asq, g.alast, g.acount, g.tok) = raw[1:]
+
+        def fetch():
+            slot_outs = _scatter_outputs(raw[0], G, cfg.max_steps)
+            return [slot_outs[sl] for sl in slot_of]
+
+        return fetch
+
+    return _dispatch_pooled_recovering(
+        call, engine, xkv, gi, enc_pool, ticks, tokenizer, pool, mode_key
+    )
+
+
+def _dispatch_group_xkv_anchor(engine, ticks, tokenizer, pool, enc_pool, xkv, gi):
+    """Anchor ticks writing into a group's pool rows.
+
+    A majority of the group anchoring together (the epoch-synchronized
+    eviction case) runs the whole-group program (layer-by-layer pool
+    rebuild, no dense [L,G,H,Dh,T] transient) when _whole_group_anchor_fits
+    lets it; small subsets (session join, resets) run the slot-scatter program
+    in chunks of at most 8 lanes, so the dense per-chunk cross-KV transient
+    stays bounded. If a pooled program still fails, the pools are rebuilt
+    and the lanes served by the legacy program
+    (_dispatch_pooled_recovering)."""
+    g = xkv.groups[gi]
+    G = g.group_width
+    p_group = max(engine.bucket_for(len(t.prefix_ids)) for t in ticks)
+    if len(ticks) >= max(2, G // 2) and _whole_group_anchor_fits(xkv, gi):
+        slot_of = [t.xkv_slot for t in ticks]
+        arr = _to_slot_order(_collect_lane_arrays(engine, ticks, tokenizer, G, p_group), slot_of, G)
+        lanes = [0] * G  # absent slots gather a throwaway row (inactive)
+        enc_lanes = np.full(G, EncPool.SCRATCH, np.int64)
+        for t in ticks:
+            lanes[t.xkv_slot] = t.pool_lane
+            enc_lanes[t.xkv_slot] = t.enc_lane
+        audio = pool.gather(lanes)
+        args, statics = _core_device_args(engine, arr, tokenizer, p_group)
+
+        def call():
+            raw = _A.alignatt_tick_anchor_group(
+                engine.model, audio, g.k, g.v, enc_pool.pool,
+                g.skv_k, g.skv_v, g.asum, g.asq, g.alast, g.acount, g.tok,
+                _to_device(engine, enc_lanes), *args, **statics,
+            )
+            (g.k, g.v, enc_pool.pool, g.skv_k, g.skv_v,
+             g.asum, g.asq, g.alast, g.acount, g.tok) = raw[1:]
+
+            def fetch():
+                slot_outs = _scatter_outputs(raw[0], G, engine.cfg.max_steps)
+                return [slot_outs[sl] for sl in slot_of]
+
+            return fetch
+
+        return _dispatch_pooled_recovering(
+            call, engine, xkv, gi, enc_pool, ticks, tokenizer, pool, "anchor_group",
+        )
+
+    fetches: List = []
+    CHUNK = 8  # bounds the dense per-chunk cross-KV transient
+    CHUNK_SMALL = 4  # a second width serves small calls at about half the encode
+    for c0 in range(0, len(ticks), CHUNK):
+        chunk = ticks[c0 : c0 + CHUNK]
+        n = len(chunk)
+        # capped engines: two chunk widths and one prefix width (the cap's
+        # bucket) for every chunked anchor, as in the JAX package
+        if engine.serving_prefix_cap:
+            B = CHUNK_SMALL if n <= CHUNK_SMALL else CHUNK
+            p_max = engine.bucket_for(engine.serving_prefix_cap)
+        else:
+            B = 1 << (n - 1).bit_length()
+            p_max = max(engine.bucket_for(len(t.prefix_ids)) for t in chunk)
+        arr = _collect_lane_arrays(engine, chunk, tokenizer, B, p_max)
+        audio = _gather_full_audio(engine, chunk, pool, B)
+        slots = np.full(B, G, np.int64)  # padded lanes -> slot G, written nowhere
+        enc_lanes = np.full(B, EncPool.SCRATCH, np.int64)
+        for i, t in enumerate(chunk):
+            slots[i] = t.xkv_slot
+            enc_lanes[i] = t.enc_lane
+        args, statics = _core_device_args(engine, arr, tokenizer, p_max)
+
+        def call(audio=audio, enc_lanes=enc_lanes, slots=slots, args=args,
+                 statics=statics, n=n):
+            raw = _A.alignatt_tick_anchor_pooled(
+                engine.model, audio, g.k, g.v, enc_pool.pool,
+                g.skv_k, g.skv_v, g.asum, g.asq, g.alast, g.acount, g.tok,
+                _to_device(engine, enc_lanes), _to_device(engine, slots), *args, **statics,
+            )
+            (g.k, g.v, enc_pool.pool, g.skv_k, g.skv_v,
+             g.asum, g.asq, g.alast, g.acount, g.tok) = raw[1:]
+            return lambda: _scatter_outputs(raw[0], n, engine.cfg.max_steps)
+
+        fetches.append(
+            _dispatch_pooled_recovering(
+                call, engine, xkv, gi, enc_pool, chunk, tokenizer, pool, "anchor_pooled",
+            )
+        )
+    return lambda: [o for f in fetches for o in f()]

@@ -7,11 +7,11 @@ streaming/alignatt.py — the equivalent of the reference's AlignAtt object +
 DecoderState for one stream (reference simul_whisper/simul_whisper.py,
 decoder_state.py), with all tensor work moved into the engine's compiled
 tick. Port of whisperlivekit_tpu/streaming/session_plan.py: host numpy
-logic, copied intact apart from the imports. The large form's branches
-(``xkv_alloc``, self-KV refresh plans) stay unreachable until a group-pool
-allocator is ported, and language auto-detect raises (the engine refuses
-``language="auto"`` before a session exists). Measurements quoted in the
-comments were taken with the JAX package on a TPU v5e, not with this port.
+logic, copied intact apart from the imports, including the large form's
+group-pool branches (``xkv_alloc``, epoch anchors, self-KV refresh plans).
+Language auto-detect raises (the engine refuses ``language="auto"`` before
+a session exists). Measurements quoted in the comments were taken with the
+JAX package on a TPU v5e, not with this port.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from .alignatt import (
     AlignAttEngine,
     _count_anchor,
 )
-from .pools import AudioPool, EncPool
+from .pools import AudioPool, EncPool, XKVAllocator
 
 logger = logging.getLogger(__name__)
 
@@ -165,7 +165,7 @@ class AlignAttSession:
         self._enc_key: Optional[Tuple[int, int]] = None  # (audio_gen, evicted)
         self._enc_pool_gen = 0
         # group-resident cross-KV cache (set by the scheduler when enabled)
-        self.xkv_alloc: Optional[object] = None  # large-form allocator (not ported)
+        self.xkv_alloc: Optional[XKVAllocator] = None
         self.xkv_gi: Optional[int] = None
         self.xkv_slot: Optional[int] = None
         self._xkv_epoch_seen = 0
