@@ -6,11 +6,14 @@ Phases (each prints lines; any failure raises and exits non-zero):
 
 1. device  — needs CUDA (there is no CPU path); prints the card's name and
              power limit; builds every kernel of the main paths from csrc/,
-             one nvcc per source, all started together.
+             one nvcc per source, all started together. TF32 is off for
+             matrix products and convolutions, so every plain version a
+             kernel is held against runs in full f32.
 2. kernels — each kernel against its plain PyTorch version on the card, at
-             the shapes the main paths give it, with the kernel's and the
-             plain version's time (CUDA events): K1 (flash_encoder_attn) at
-             the base shapes, every prefill bucket and a ragged, poisoned T.
+             the shapes the main paths give it, with the kernel's, the plain
+             version's and (K1) the library call's time (CUDA events): K1
+             (flash_encoder_attn) at the base shapes, every prefill bucket
+             and a ragged, poisoned T.
 3. main    — the base form: an f32 tick on the card against the CPU, then
              Whisper ``base`` at full width (random weights from a seed):
              TranscriptionEngine + AudioProcessor sessions fed speech-like
@@ -18,24 +21,39 @@ Phases (each prints lines; any failure raises and exits non-zero):
              localhost. Checks that every session got words, that anchor and
              inc ticks ran, that no tick failed and nothing logged a failure,
              and that K1 launched during the run.
-4. large   — the large form: one whole-group anchor and two pooled inc
-             ticks in f32 at large-v3 widths (4+4 layers) on the card against
-             the CPU, then ``random:large-v3`` bf16 at full width with
+4. front   — the full-window front end: a base f32 anchor with the fused
+             mel (K3) and a language detection on the card against the CPU,
+             then ``random:base`` bf16 with ``mel_pallas=True`` and
+             ``language="auto"``: AudioProcessor sessions and one ``WS /asr``
+             stream. Checks that every session detected a language and got
+             words, that K3 launched once on every full-window tick, and that
+             no tick failed.
+5. large   — the large form: one whole-group anchor (fused mel at 128 mels)
+             and two pooled inc ticks in f32 at large-v3 widths (4+4 layers)
+             on the card against the CPU, then ``random:large-v3`` bf16 at
+             full width with ``mel_pallas=True`` and ``language="auto"``:
              AudioProcessor sessions (two joining late) and one ``WS /asr``
              stream in one 8-wide lane group. Checks that the whole-group
              anchor, the chunked anchor and the pooled inc tick each ran,
-             that K1 and K2 launched during the run, that every session got
-             words, and that no tick failed and no group recovered.
-5. kernels — the large form's kernels at the shapes its engine gives them:
+             that K1, K2 and K3 launched during the run, that every session
+             detected a language and got words, and that no tick failed and
+             no group recovered.
+6. kernels — the large form's kernels at the shapes its engine gives them:
              K1 at the encoder's two shapes, every prefix bucket over the
              dense cross-KV and over the pool, and both refresh widths, and
              at every (S, T) the large run launched; K2 against its plain
              version exactly, bf16 and f32, at the run's group width and at
-             24 lanes, with edge and idle lanes.
+             24 lanes, with edge and idle lanes. Then K3 at every lane count
+             the runs launched (and 4 and 8), at 80 and 128 mels, at a ragged
+             length, with an all-zero lane and a lane silent past 5 s.
 
-The line before the last is the kernels' JSON record, the one before it
-the card's name and power limit; the last line is
-``{"ok": true, "device": {...}}``. Imports no JAX.
+The front and large phases also time each language detection on the
+host's clock. The line before the last is the card's name and power limit,
+the one before it the kernels' JSON record, with each kernel's bound: the
+larger of its bytes over 3.35 TB/s and the operations its function needs
+over the peak rate of their type (for K3 a real FFT of each frame; its
+``dft_bound_ms`` counts the DFT-by-product formulation the kernel uses).
+The last line is ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -43,9 +61,11 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import math
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -56,10 +76,18 @@ from whisperlivekit_tpu_torch.ops.flash_encoder import (
     flash_encoder_attn,
     flash_encoder_attn_plain,
 )
+from whisperlivekit_tpu_torch.ops.mel_pallas import (
+    _log10_mel,
+    _log10_mel_plain,
+    _mel_ranges,
+    log_mel_pallas,
+    log_mel_pallas_plain,
+)
 from whisperlivekit_tpu_torch.ops.xkv_merge import W_SPLICE, xkv_splice, xkv_splice_plain
 from whisperlivekit_tpu_torch.streaming.alignatt import AlignAttEngine
 
 PREFIX_BUCKETS = AlignAttEngine.PREFIX_BUCKETS  # prefill S at call site 3
+CARD = "cuda"  # the reference phases run each program here and on the CPU
 
 B, H, DH = 8, 8, 64  # Whisper base: 8 heads of 64; 8 concurrent lanes
 # (label, S, T, v_transposed): the three call sites of the base form
@@ -74,7 +102,22 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                            "whisperlivekit_tpu/ops/flash_encoder.py:73"),
     "xkv_splice": ("whisperlivekit_tpu_torch/csrc/xkv_splice.cu",
                    "whisperlivekit_tpu/ops/xkv_merge.py:73"),
+    "log_mel_pallas": ("whisperlivekit_tpu_torch/csrc/log_mel.cu",
+                       "whisperlivekit_tpu/ops/mel_pallas.py:73"),
 }
+# the card's published peaks (H100 SXM data sheet, dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12,   # tensor cores
+              torch.float32: 67e12}     # f32 FMA on CUDA cores
+
+
+def bound_ms(ops: float, nbytes: float, dtype=torch.float32) -> dict:
+    """The least time the card could take: operations over the peak rate of
+    their type, or bytes (each input read once, each output written once)
+    over the memory rate, whichever is larger."""
+    t_ops, t_bytes = ops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 # large-v3: 20 heads of 64, a lane group of 8 (max_batch_sessions below)
 LG, LH = 8, 20
@@ -132,7 +175,8 @@ def phase_device() -> str:
     with ThreadPoolExecutor(len(KERNELS)) as ex:  # one nvcc per source, together
         libs = list(ex.map(cuda_build.build, [src.rsplit("/", 1)[1][:-3] for src, _ in KERNELS.values()]))
     log("device", card=repr(card), torch=torch.__version__, cuda=torch.version.cuda,
-        build_s=round(time.perf_counter() - t0, 2), libs=[lib.name for lib in libs])
+        build_s=round(time.perf_counter() - t0, 2), libs=[lib.name for lib in libs],
+        tf32_matmul=torch.backends.cuda.matmul.allow_tf32, tf32_cudnn=torch.backends.cudnn.allow_tf32)
     for lib in libs:
         report = lib.with_suffix(".ptxas.txt")
         ptxas = report.read_text() if report.exists() else ""
@@ -167,27 +211,43 @@ def _time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _sdpa(q, k, v, t_valid: int, vt: bool):
+    """The library call that computes K1's function: PyTorch's fused
+    attention on k transposed, the keys past t_valid cut off (the key mask).
+    Timed beside K1 as its yardstick; the port never calls it."""
+    kt = k.transpose(-1, -2)[..., :t_valid, :]
+    vv = (v.transpose(-1, -2) if vt else v)[..., :t_valid, :]
+    return torch.nn.functional.scaled_dot_product_attention(q, kt, vv)
+
+
 def _check_k1(label: str, model: str, S: int, T: int, t_valid: int, vt: bool, dtype, b: int, h: int) -> dict:
     """K1 against its plain version at one call site's shape: checked
-    within the tolerance, timed (CUDA events), logged."""
+    within the tolerance, timed with its plain version and the library call
+    (CUDA events), bounded, logged."""
     q, k, v = _qkv(S, T, vt, dtype, seed=S + T, b=b, h=h)
     if t_valid < T:  # a pool's padding columns hold zeros
         k[..., t_valid:] = 0
         v[..., t_valid:] = 0
     got = flash_encoder_attn(q, k, v, t_valid=t_valid, v_transposed=vt)
     want = flash_encoder_attn_plain(q, k, v, t_valid=t_valid, v_transposed=vt)
+    lib_err = (_sdpa(q, k, v, t_valid, vt).float() - want.float()).abs().max().item()
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     ok = bool(torch.isfinite(got.float()).all().item()) and err <= TOL[dtype]
     ms = _time_ms(lambda: flash_encoder_attn(q, k, v, t_valid=t_valid, v_transposed=vt))
     plain_ms = _time_ms(lambda: flash_encoder_attn_plain(q, k, v, t_valid=t_valid, v_transposed=vt))
+    library_ms = _time_ms(lambda: _sdpa(q, k, v, t_valid, vt))
+    # QK^T and PV over the valid keys; q, k, v read once, the output written once
+    bound = bound_ms(4 * b * h * S * t_valid * DH,
+                     (q.numel() + k.numel() + v.numel() + got.numel()) * q.element_size(), dtype)
     dt = str(dtype).replace("torch.", "")
     log("kernels", kernel="flash_encoder_attn", model=model, shape=f"B{b}xH{h}xS{S}xT{T}xDh{DH}",
         t_valid=t_valid, call_site=repr(label), dtype=dt, max_abs_err=err, tol=TOL[dtype],
-        ms=round(ms, 4), plain_ms=round(plain_ms, 4), ok=ok)
+        ms=round(ms, 4), plain_ms=round(plain_ms, 4), library_ms=round(library_ms, 4),
+        library_abs_err=lib_err, bound_ms=round(bound["bound_ms"], 4), bound_by=bound["bound_by"], ok=ok)
     if not ok:
         raise AssertionError(f"flash_encoder_attn disagrees at {model} {label} {dt}: {err}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
 
 
 def phase_kernels() -> dict:
@@ -264,14 +324,15 @@ def _check_k2(shape, win_list, dtype) -> dict:
     # read + write, K and V, of the lanes with win > 0
     moved = 2 * 2 * tk.numel() * tk.element_size() * (len(win_list) - len(idle)) // len(win_list)
     dt = str(dtype).replace("torch.", "")
+    bound = bound_ms(0, moved)  # a copy: no arithmetic
     log("kernels", kernel="xkv_splice", shape="x".join(map(str, shape)), dtype=dt,
         win=list(win_list), exact=exact, ms=round(ms, 4), plain_ms=round(plain_ms, 4),
-        GB_per_s=round(moved / ms / 1e6, 1))
+        GB_per_s=round(moved / ms / 1e6, 1), bound_ms=round(bound["bound_ms"], 4))
     if not exact:
         raise AssertionError(f"xkv_splice disagrees with its plain version at {shape} ({dt})")
     del pk, pv, tk, tv
     torch.cuda.empty_cache()
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **bound)
 
 
 def phase_kernels_large(geom: dict, launched: dict) -> dict:
@@ -298,6 +359,68 @@ def phase_kernels_large(geom: dict, launched: dict) -> dict:
     return records
 
 
+K3_TOL = dict(rtol=1e-4, atol=2e-4)  # the JAX suite's bar (tests/test_mel_pallas.py), f32 sum order
+
+
+def _check_k3(B: int, N: int, n_mels: int, seed: int) -> dict:
+    """K3 against its plain version on the card (the plain side's products
+    run in full f32: TF32 is off), with an all-zero lane and a lane silent
+    past 5 s where there are lanes for them; the kernel alone (log10 mel,
+    without the floor that follows it) timed against its plain version,
+    bounded, logged."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    audio = 0.2 * torch.randn(B, N, generator=g, device="cuda")
+    if B >= 2:
+        audio[1] = 0
+    if B >= 3:
+        audio[2, 5 * 16000:] = 0
+    got = log_mel_pallas(audio, n_mels)
+    want = log_mel_pallas_plain(audio, n_mels)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    ok = bool(torch.isfinite(got).all().item()) and torch.allclose(got, want, **K3_TOL)
+    ms = _time_ms(lambda: _log10_mel(audio, n_mels))
+    plain_ms = _time_ms(lambda: _log10_mel_plain(audio, n_mels))
+    T = N // 160
+    nnz = int((_mel_ranges(n_mels)[:, 1] - _mel_ranges(n_mels)[:, 0]).sum())
+    # What the log-mel function needs: a real FFT of each 400-tap frame
+    # (2.5 n log2 n, half the 5 n log2 n of a complex one), the power of its
+    # 201 bins, the filters' nonzero weights; audio and the filterbank in,
+    # log-mel out. The bytes rule at every shape checked here.
+    ops = B * T * (2.5 * 400 * math.log2(400) + 3 * 201 + 2 * nnz)
+    nbytes = 4 * (B * N + B * n_mels * T + 256 * 128 + 2 * n_mels)
+    bound = bound_ms(ops, nbytes)
+    # The same bound for the DFT-by-product formulation that the kernel (and
+    # the TPU kernel) uses: 402 outputs of 400 taps, with the basis read once
+    dft_ops = 2 * B * T * 400 * 402 + 3 * B * T * 201 + 2 * B * T * nnz
+    dft_bound = bound_ms(dft_ops, nbytes + 4 * 480 * 512)
+    log("kernels", kernel="log_mel_pallas", shape=f"B{B}xN{N}", n_mels=n_mels, max_abs_err=err,
+        rtol=K3_TOL["rtol"], atol=K3_TOL["atol"], ms=round(ms, 4), plain_ms=round(plain_ms, 4),
+        bound_ms=round(bound["bound_ms"], 5), bound_by=bound["bound_by"],
+        dft_bound_ms=round(dft_bound["bound_ms"], 4), dft_bound_by=dft_bound["bound_by"],
+        dft_TFLOP_per_s=round(dft_ops / ms / 1e9, 1), ok=ok)
+    if not ok:
+        raise AssertionError(f"log_mel_pallas disagrees at B={B} N={N} n_mels={n_mels}: {err}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **bound,
+                dft_bound_ms=dft_bound["bound_ms"])
+
+
+def phase_kernels_k3(launched: dict) -> dict:
+    """K3 at every lane count the main paths launched it with (and 4 and 8,
+    the base anchor's), at the full window, for 80 and 128 mels, and at a
+    ragged length; fails if a run launched K3 at an unchecked shape."""
+    records = {}
+    lanes = sorted({b for b, _, _ in launched} | {4, 8})
+    cases = [(b, 480000, m) for b in lanes for m in (80, 128)]
+    cases += [(2, 32000 + 77, 80), (3, 32000 + 77, 128)]  # 2 s and a bit: ragged
+    for i, (b, n, m) in enumerate(cases):
+        records[(b, n, m)] = _check_k3(b, n, m, seed=100 + i)
+    unchecked = set(launched) - set(records)
+    if unchecked:
+        raise AssertionError(f"the runs launched K3 at unchecked shapes {sorted(unchecked)}")
+    return records
+
+
 def phase_reference() -> None:
     """One full-width tick of the port in f32 on the card (kernel path)
     against the same tick on the CPU (plain path): the packed integer
@@ -312,7 +435,7 @@ def phase_reference() -> None:
     tok = get_tokenizer(True, language="en", task="transcribe")
     pcm = speech_pcm(3.0, seed=99)
     outs, launched = {}, 0
-    for dev in ("cuda", "cpu"):
+    for side, dev in (("card", CARD), ("cpu", "cpu")):
         model = wm.init_params(dims, torch.Generator().manual_seed(1), torch.float32, dev)
         eng = A.AlignAttEngine(model, dims, tok, A.AlignAttConfig(language="en"))
         ti = TickInputs(audio=None, prefix_ids=list(tok.sot_sequence_including_notimestamps),
@@ -324,9 +447,10 @@ def phase_reference() -> None:
         audio[0, : len(pcm)] = pcm
         before = flash_encoder_attn.launches
         with torch.inference_mode():
-            outs[dev] = A.alignatt_tick(model, torch.from_numpy(audio).to(dev), *args, **statics).cpu().numpy()
-        launched += flash_encoder_attn.launches - before
-    g, c = outs["cuda"], outs["cpu"]
+            outs[side] = A.alignatt_tick(model, torch.from_numpy(audio).to(dev), *args, **statics).cpu().numpy()
+        if side == "card":
+            launched = flash_encoder_attn.launches - before
+    g, c = outs["card"], outs["cpu"]
     ns_err = float(abs(g[0, -1:].view(np.float32) - c[0, -1:].view(np.float32))[0])
     ok = bool((g[:, :-1] == c[:, :-1]).all()) and ns_err <= 1e-4 and launched > 0
     log("reference", model="base f32 random", tick="alignatt_tick B=1 3s",
@@ -353,6 +477,8 @@ PACE = 10.0          # audio fed at 10x real time
 
 
 async def _feed_processor(processor, pcm: np.ndarray, pace: float = PACE, delay: float = 0.0) -> list:
+    """Stream PCM into an in-process session; returns its last lines as
+    (text, detected_language)."""
     await asyncio.sleep(delay)
     results = await processor.create_tasks()
     last = []
@@ -369,10 +495,12 @@ async def _feed_processor(processor, pcm: np.ndarray, pace: float = PACE, delay:
     await processor.process_audio(b"")
     await asyncio.wait_for(task, timeout=300)
     await processor.cleanup()
-    return [ln.text for ln in last if ln.text]
+    return [(ln.text, ln.detected_language) for ln in last if ln.text]
 
 
 async def _feed_websocket(url: str, pcm: np.ndarray, pace: float = PACE, delay: float = 0.0) -> list:
+    """Stream PCM over ``WS /asr``; returns the last lines as (text,
+    detected_language)."""
     import aiohttp
 
     await asyncio.sleep(delay)
@@ -389,7 +517,8 @@ async def _feed_websocket(url: str, pcm: np.ndarray, pace: float = PACE, delay: 
                     msg = await ws.receive_json(timeout=300)
                     if msg.get("type") == "ready_to_stop":
                         return
-                    texts = [ln["text"] for ln in msg.get("lines", []) if ln.get("text")]
+                    texts = [(ln["text"], ln.get("detected_language"))
+                             for ln in msg.get("lines", []) if ln.get("text")]
             task = asyncio.create_task(receive())
             step = int(16000 * CHUNK_S)
             for i in range(0, len(pcm), step):
@@ -421,9 +550,7 @@ async def _main_path() -> dict:
     host, port = runner.addresses[0][:2]
     setup_s = time.perf_counter() - t0
     try:
-        # count only the main path's run from here
-        flash_encoder_attn.launches = 0
-        flash_encoder_attn.shapes.clear()
+        _reset_kernel_counts()  # count only the main path's run from here
         engine.scheduler.reset_stats()
         t1 = time.perf_counter()
         pcms = [speech_pcm(SESSION_SECONDS, seed=s) for s in range(N_SESSIONS + 1)]
@@ -455,7 +582,7 @@ def phase_main() -> int:
         phase_reference()
         run = asyncio.run(_main_path())
     stats = run["stats"]
-    words = [sum(len(t.split()) for t in texts) for texts in run["texts"]]
+    words = [sum(len(t.split()) for t, _ in lines) for lines in run["texts"]]
     shapes = {f"{s}x{t}": n for (s, t), n in sorted(run["shapes"].items())}
     log("main", model="random:base bf16", sessions=len(words),
         audio_s_each=SESSION_SECONDS, words_per_session=words,
@@ -466,7 +593,8 @@ def phase_main() -> int:
         failed_ticks=stats["n_failed_ticks"])
     for key, ph in stats["tick_phases"].items():
         log("main", tick_phase=key, **ph)
-    log("main", kernel="flash_encoder_attn", launches=run["launches"], launches_by_SxT=shapes)
+    log("main", kernel="flash_encoder_attn", launches=run["launches"], launches_by_SxT=shapes,
+        per_tick=round(run["launches"] / max(stats["n_ticks"], 1), 2))
     if stats["n_failed_ticks"]:
         raise AssertionError(f"{stats['n_failed_ticks']} batch ticks failed")
     if not all(words):
@@ -480,11 +608,160 @@ def phase_main() -> int:
     return run["launches"]
 
 
+def phase_reference_front() -> None:
+    """The full-window front end in f32 on the card (K3, K1) against the
+    CPU (plain versions), with the base model from one seed: a two-lane
+    ``alignatt_tick_anchor`` with ``mel_pallas=True`` (integer outputs
+    equal, no_speech_p within 1e-4), and language detection over both
+    lanes' windows (plain mel, full encode, one decoder step: the same
+    codes, every language's probability within 1e-4)."""
+    from whisperlivekit_tpu_torch.audio.mel import N_SAMPLES, log_mel_spectrogram, pad_or_trim
+    from whisperlivekit_tpu_torch.decoding.task import WhisperDecoder
+    from whisperlivekit_tpu_torch.engine.core import MODEL_DIMS, get_tokenizer
+    from whisperlivekit_tpu_torch.models.whisper import model as wm
+    from whisperlivekit_tpu_torch.streaming import alignatt as A
+    from whisperlivekit_tpu_torch.streaming.dispatch import _collect_lane_arrays, _core_device_args
+    from whisperlivekit_tpu_torch.streaming.session_plan import TickInputs
+
+    dims = MODEL_DIMS["base"]
+    tok = get_tokenizer(True, language="en", task="transcribe")
+    pcms = [speech_pcm(3.0, seed=98), speech_pcm(7.0, seed=97)]
+    pcms[1][5 * 16000:] = 0  # silent past 5 s: the floor clamps there
+    audio = np.zeros((2, N_SAMPLES), np.int16)
+    for i, pcm in enumerate(pcms):
+        audio[i, : len(pcm)] = pcm
+    res, launched = {}, 0
+    for side, dev in (("card", CARD), ("cpu", "cpu")):
+        model = wm.init_params(dims, torch.Generator().manual_seed(1), torch.float32, dev)
+        eng = A.AlignAttEngine(model, dims, tok, A.AlignAttConfig(language="en", mel_pallas=True))
+        tis = [TickInputs(audio=None, prefix_ids=list(tok.sot_sequence_including_notimestamps),
+                          sot_index=0, content_frames=len(pcm) // 320, last_attend=-200,
+                          is_last=False, max_new=50) for pcm in pcms]
+        args, statics = _core_device_args(eng, _collect_lane_arrays(eng, tis, tok, 2, 32), tok, 32)
+        enc_pool = torch.zeros((3, dims.n_audio_ctx, dims.n_audio_state), device=dev)
+        before = log_mel_pallas.launches
+        with torch.inference_mode():
+            packed, _ = A.alignatt_tick_anchor(
+                model, torch.from_numpy(audio).to(dev), enc_pool, torch.tensor([1, 2], device=dev),
+                *args, **statics)
+            mel = torch.stack([
+                pad_or_trim(log_mel_spectrogram(
+                    torch.from_numpy(pcm.astype(np.float32) / 32768.0).to(dev),
+                    n_mels=dims.n_mels, padding=N_SAMPLES - len(pcm)), 2 * dims.n_audio_ctx)
+                for pcm in pcms])
+            codes, probs = WhisperDecoder(model, dims).detect_language(wm.encode(model, mel, dims), tok)
+        if side == "card":
+            launched = log_mel_pallas.launches - before
+        res[side] = (packed.cpu().numpy(), codes, probs)
+    (g, gcodes, gprobs), (c, ccodes, cprobs) = res["card"], res["cpu"]
+    ns_err = float(np.abs(g[:, -1:].view(np.float32) - c[:, -1:].view(np.float32)).max())
+    p_err = max(abs(a[k] - b[k]) for a, b in zip(gprobs, cprobs) for k in a)
+    ok = (bool((g[:, :-1] == c[:, :-1]).all()) and ns_err <= 1e-4 and launched == 1
+          and gcodes == ccodes and p_err <= 1e-4)
+    log("reference", model="base f32 random", tick="alignatt_tick_anchor mel_pallas B=2 (3 s, 7 s)",
+        gpu=g[:, :-1].tolist(), cpu=c[:, :-1].tolist(), no_speech_err=ns_err,
+        k3_launches=launched, languages=gcodes, cpu_languages=ccodes, language_prob_err=p_err, ok=ok)
+    if not ok:
+        raise AssertionError("the card's front end disagrees with the CPU reference")
+
+
+FRONT_SESSIONS = 4     # AudioProcessor sessions in process, plus one over WS /asr
+FRONT_SECONDS = 16.0
+# wall seconds (audio runs at 10x): sessions join one by one, each with a
+# full-window anchor. The window does not evict: a session detects its
+# language once its window reaches 2 s past its first timestamp, which is
+# not moved by eviction, as in the JAX package
+FRONT_DELAYS = (0.0, 0.3, 0.6, 0.9)
+FRONT_WS_DELAY = 0.15
+
+
+async def _main_path_front() -> dict:
+    from aiohttp import web
+
+    from whisperlivekit_tpu_torch.engine.core import TranscriptionEngine, WLKConfig
+    from whisperlivekit_tpu_torch.server.app import WLKServer
+    from whisperlivekit_tpu_torch.session.processor import AudioProcessor
+
+    config = WLKConfig(model_size="random:base", lan="auto", pcm_input=True, vac=False,
+                       param_dtype="bfloat16", log_level="WARNING")
+    t0 = time.perf_counter()
+    engine = TranscriptionEngine(config)
+    engine.asr.cfg.mel_pallas = True  # an AlignAttConfig field: WLKConfig has no flag for it
+    if engine.device.type != "cuda":
+        raise AssertionError(f"engine landed on {engine.device}, not the card")
+    runner = web.AppRunner(WLKServer(config, engine=engine).app)
+    await runner.setup()  # startup runs the engine's warmup tick
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    host, port = runner.addresses[0][:2]
+    setup_s = time.perf_counter() - t0
+    try:
+        with Instrumented(FULL_WINDOW) as ins:
+            _reset_kernel_counts()
+            engine.scheduler.reset_stats()
+            t1 = time.perf_counter()
+            pcms = [speech_pcm(FRONT_SECONDS, seed=60 + s) for s in range(FRONT_SESSIONS + 1)]
+            procs = [AudioProcessor(transcription_engine=engine) for _ in range(FRONT_SESSIONS)]
+            texts = await asyncio.gather(
+                *(_feed_processor(p, pcm, PACE, d) for p, pcm, d in zip(procs, pcms, FRONT_DELAYS)),
+                _feed_websocket(f"http://{host}:{port}/asr", pcms[-1], PACE, FRONT_WS_DELAY),
+            )
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            counts = _kernel_counts()
+        langs = [p.transcription.model.detected_language for p in procs]
+        langs.append(next((lang for _, lang in texts[-1] if lang), None))
+        stats = engine.scheduler.stats()
+    finally:
+        await runner.cleanup()
+        TranscriptionEngine.reset()
+    return dict(texts=texts, langs=langs, wall=wall, setup_s=setup_s, counts=counts,
+                stats=stats, calls=ins.calls, phase_ms=ins.phase_ms, detect_ms=ins.detect_ms)
+
+
+def phase_front() -> dict:
+    import tempfile
+
+    from whisperlivekit_tpu_torch.harness.vocab import install_standin_vocab
+
+    with tempfile.TemporaryDirectory(prefix="wlk_vocab_") as vocab_dir:
+        install_standin_vocab(vocab_dir)
+        phase_reference_front()
+        run = asyncio.run(_main_path_front())
+    stats, counts = run["stats"], run["counts"]
+    words = [sum(len(t.split()) for t, _ in lines) for lines in run["texts"]]
+    log("front", model="random:base bf16, mel_pallas, language auto", sessions=len(words),
+        audio_s_each=FRONT_SECONDS, words_per_session=words,
+        wall_s=round(run["wall"], 3), setup_s=round(run["setup_s"], 3),
+        ticks=stats["n_ticks"], avg_lanes=stats["avg_lanes_per_tick"],
+        tick_ms_p50=stats["tick_ms_p50"], tick_ms_p95=stats["tick_ms_p95"],
+        word_emission_p50_ms=stats["word_emission_p50_ms"],
+        word_emission_p95_ms=stats["word_emission_p95_ms"], failed_ticks=stats["n_failed_ticks"])
+    for key, ms in sorted(run["phase_ms"].items()):
+        log("front", tick_phase=key, n=len(ms), p50_ms=_quantile(ms, 0.5), p95_ms=_quantile(ms, 0.95),
+            mean_lanes=stats["tick_phases"].get(key, {}).get("mean_lanes"))
+    log("front", programs=run["calls"], anchor_reasons=stats["anchor_reasons"])
+    log("front", kernel="flash_encoder_attn", launches=counts["flash_encoder_attn"],
+        per_tick=round(counts["flash_encoder_attn"] / max(stats["n_ticks"], 1), 2))
+    if stats["n_failed_ticks"]:
+        raise AssertionError(f"{stats['n_failed_ticks']} batch ticks failed")
+    _check_languages("front", run)
+    if not all(words):
+        raise AssertionError(f"a session got no words: {words}")
+    if not {"anchor", "inc"} <= set(stats["tick_phases"]):
+        raise AssertionError(f"expected anchor and inc ticks, got {list(stats['tick_phases'])}")
+    _check_front_kernels("front", run)
+    if not counts["flash_encoder_attn"]:
+        raise AssertionError("K1 never launched in the front phase")
+    return run
+
+
 def phase_reference_large(tok_for) -> None:
-    """One whole-group anchor then two pooled inc ticks, two sessions, f32,
-    large-v3 widths with the depth cut to 4+4 layers, on the card (K1, K2)
-    and on the CPU (plain versions) in lockstep: the modes and the integer
-    outputs must be equal, no_speech_p within 1e-4."""
+    """One whole-group anchor (the fused mel at 128 mels) then two pooled
+    inc ticks, two sessions, f32, large-v3 widths with the depth cut to 4+4
+    layers, on the card (K1, K2, K3) and on the CPU (plain versions) in
+    lockstep: the modes and the integer outputs must be equal, no_speech_p
+    within 1e-4."""
     from dataclasses import replace
 
     from whisperlivekit_tpu_torch.engine.core import MODEL_DIMS
@@ -495,37 +772,39 @@ def phase_reference_large(tok_for) -> None:
     dims = replace(MODEL_DIMS["large-v3"], n_audio_layer=4, n_text_layer=4)
     tok = tok_for(dims)
     sides = {}
-    for dev in ("cuda", "cpu"):
+    for side, dev in (("card", CARD), ("cpu", "cpu")):
         model = wm.init_params(dims, torch.Generator().manual_seed(3), torch.float32, dev)
         # the large-v3 tail (the cut depth would pick another model class's)
-        eng = A.AlignAttEngine(model, dims, tok, A.AlignAttConfig(language="en", enc_tail_frames=160))
+        eng = A.AlignAttEngine(model, dims, tok, A.AlignAttConfig(language="en", enc_tail_frames=160,
+                                                                  mel_pallas=True))
         pool, enc_pool = A.AudioPool(4, device=dev), A.EncPool(5, dims, torch.float32, dev)
         xkv = A.XKVAllocator.for_engine(eng, 2, epoch_period=50)
         sessions = [A.AlignAttSession(eng) for _ in range(2)]
         for s in sessions:
             s.pool, s.enc_pool, s.xkv_alloc = pool, enc_pool, xkv
-        sides[dev] = (eng, pool, enc_pool, xkv, sessions)
+        sides[side] = (eng, pool, enc_pool, xkv, sessions)
     pcms = [speech_pcm(8.0, seed=40 + i).astype(np.float32) / 32768.0 for i in range(2)]
     calls = {}
-    launched = {"flash_encoder_attn": 0, "xkv_splice": 0}
+    launched = {"flash_encoder_attn": 0, "xkv_splice": 0, "log_mel_pallas": 0}
     for tick, (a0, a1) in enumerate(((0, 96000), (96000, 112000), (112000, 128000))):
         res = {}
-        for dev, (eng, pool, enc_pool, xkv, sessions) in sides.items():
+        for side, (eng, pool, enc_pool, xkv, sessions) in sides.items():
             tis = []
             for s, pcm in zip(sessions, pcms):
                 s.insert_audio(pcm[a0:a1])
                 tis.append(s.prepare_tick(False))
-            before = (flash_encoder_attn.launches, xkv_splice.launches)
+            before = (flash_encoder_attn.launches, xkv_splice.launches, log_mel_pallas.launches)
             A.TICK_PHASE_STATS.clear()
             with torch.inference_mode():
                 outs = run_tick_batch(eng, tis, tok, pool=pool, enc_pool=enc_pool, xkv=xkv)
             for s, ti, o in zip(sessions, tis, outs):
                 s.finish_tick(ti, o)
-            if dev == "cuda":
+            if side == "card":
                 launched["flash_encoder_attn"] += flash_encoder_attn.launches - before[0]
                 launched["xkv_splice"] += xkv_splice.launches - before[1]
-            res[dev] = (tuple(t.enc_mode for t in tis), outs, sorted(A.TICK_PHASE_STATS))
-        (gm, go, gp), (cm, co, cp) = res["cuda"], res["cpu"]
+                launched["log_mel_pallas"] += log_mel_pallas.launches - before[2]
+            res[side] = (tuple(t.enc_mode for t in tis), outs, sorted(A.TICK_PHASE_STATS))
+        (gm, go, gp), (cm, co, cp) = res["card"], res["cpu"]
         ints = lambda o: (o.new_tokens, [int(f) for f in o.frames], o.n_keep, o.reason,  # noqa: E731
                           o.last_attend, o.fire)
         ns_err = max(abs(a.no_speech_p - b.no_speech_p) for a, b in zip(go, co))
@@ -539,7 +818,7 @@ def phase_reference_large(tok_for) -> None:
         calls[gm] += 1
     want = {("anchor", "anchor"): 1, ("inc", "inc"): 2}
     if calls != want or not all(launched.values()):
-        raise AssertionError(f"expected one whole-group anchor, two inc ticks and both kernels: "
+        raise AssertionError(f"expected one whole-group anchor, two inc ticks and all three kernels: "
                              f"{calls} {launched}")
     log("reference", model="large-v3 widths", kernel_launches=launched, ok=True)
 
@@ -551,11 +830,96 @@ LARGE_DELAYS = (0.0, 0.0, 0.0, 0.0, 3.0)  # the fifth joins late: a chunked anch
 LARGE_WS_DELAY = 6.0
 LARGE_PROGRAMS = ("alignatt_tick_anchor_group", "alignatt_tick_anchor_pooled",
                   "alignatt_tick_inc_skv")
+# the programs that encode a full window, where the fused mel (K3) runs
+FULL_WINDOW = ("alignatt_tick", "alignatt_tick_anchor", "alignatt_tick_anchor_pooled",
+               "alignatt_tick_anchor_group")
 
 
 def _quantile(xs, q):
     xs = sorted(xs)
     return round(xs[min(int(q * len(xs)), len(xs) - 1)], 1) if xs else None
+
+
+class Instrumented:
+    """Counts the calls of the named tick programs (wrapped on the alignatt
+    facade, where the dispatch looks them up), records the peak device
+    memory over each call of ``peak_of``, times every dispatched group
+    from dispatch to fetch, by mode, and times each language detection on
+    the host's clock (the mel, the batch-1 encode and the decoder step,
+    which run outside the scheduler's batched tick). Restores everything on
+    exit."""
+
+    def __init__(self, programs, peak_of=None):
+        from whisperlivekit_tpu_torch.streaming import alignatt as A
+        from whisperlivekit_tpu_torch.streaming import dispatch as D
+
+        from whisperlivekit_tpu_torch.streaming.session_plan import AlignAttSession
+
+        self.A, self.D, self.S, self.peak_of = A, D, AlignAttSession, peak_of
+        self.calls = dict.fromkeys(programs, 0)
+        self.peaks, self.phase_ms, self.detect_ms = [], {}, []
+
+    def _wrap(self, name, real):
+        def wrapped(*a, **k):
+            self.calls[name] += 1
+            if name != self.peak_of:
+                return real(*a, **k)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = real(*a, **k)
+            torch.cuda.synchronize()
+            self.peaks.append(torch.cuda.max_memory_allocated())
+            return out
+        return wrapped
+
+    def __enter__(self):
+        self.reals = {name: getattr(self.A, name) for name in self.calls}
+        self.real_dispatch = self.D.dispatch_tick_batch
+
+        def timed_dispatch(*a, **k):
+            pends = []
+            for mk, idxs, fetch, t_g in self.real_dispatch(*a, **k):
+                def timed(fetch=fetch, mk=mk, t_g=t_g):
+                    res = fetch()
+                    self.phase_ms.setdefault(mk, []).append((time.perf_counter() - t_g) * 1e3)
+                    return res
+                pends.append((mk, idxs, timed, t_g))
+            return pends
+
+        for name, real in self.reals.items():
+            setattr(self.A, name, self._wrap(name, real))
+        self.D.dispatch_tick_batch = timed_dispatch
+        self.real_detect = self.S._maybe_detect_language
+
+        def timed_detect(sess, audio):
+            before, t = sess.detected_language, time.perf_counter()
+            self.real_detect(sess, audio)
+            if before is None and sess.detected_language is not None:
+                self.detect_ms.append((time.perf_counter() - t) * 1e3)
+
+        self.S._maybe_detect_language = timed_detect
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.reals.items():
+            setattr(self.A, name, fn)
+        self.D.dispatch_tick_batch = self.real_dispatch
+        self.S._maybe_detect_language = self.real_detect
+
+
+def _reset_kernel_counts() -> None:
+    """Every kernel's launch counts to 0: the main path's run counts from here."""
+    flash_encoder_attn.launches = 0
+    flash_encoder_attn.shapes.clear()
+    xkv_splice.launches = 0
+    log_mel_pallas.launches = 0
+    log_mel_pallas.shapes.clear()
+
+
+def _kernel_counts() -> dict:
+    return dict(flash_encoder_attn=flash_encoder_attn.launches, xkv_splice=xkv_splice.launches,
+                log_mel_pallas=log_mel_pallas.launches, k1_shapes=dict(flash_encoder_attn.shapes),
+                k3_shapes=dict(log_mel_pallas.shapes))
 
 
 async def _main_path_large() -> dict:
@@ -565,15 +929,15 @@ async def _main_path_large() -> dict:
     from whisperlivekit_tpu_torch.server.app import WLKServer
     from whisperlivekit_tpu_torch.session.processor import AudioProcessor
     from whisperlivekit_tpu_torch.streaming import alignatt as A
-    from whisperlivekit_tpu_torch.streaming import dispatch as D
 
     # one 8-wide lane group; an 8 s window evicts every 4 s, and a group
     # epoch passes every 4 pooled inc ticks
-    config = WLKConfig(model_size="random:large-v3", lan="en", pcm_input=True, vac=False,
+    config = WLKConfig(model_size="random:large-v3", lan="auto", pcm_input=True, vac=False,
                        param_dtype="bfloat16", log_level="WARNING", max_batch_sessions=LG,
                        audio_max_len=8.0)
     t0 = time.perf_counter()
     engine = TranscriptionEngine(config)
+    engine.asr.cfg.mel_pallas = True  # an AlignAttConfig field: WLKConfig has no flag for it
     init_s = time.perf_counter() - t0
     if engine.device.type != "cuda":
         raise AssertionError(f"engine landed on {engine.device}, not the card")
@@ -583,56 +947,22 @@ async def _main_path_large() -> dict:
     await site.start()
     host, port = runner.addresses[0][:2]
     setup_s = time.perf_counter() - t0
-
-    calls = dict.fromkeys(LARGE_PROGRAMS, 0)
-    peaks, phase_ms = [], {}
-    reals = {name: getattr(A, name) for name in LARGE_PROGRAMS}
-    real_dispatch = D.dispatch_tick_batch
-
-    def wrap(name):
-        def wrapped(*a, **k):
-            calls[name] += 1
-            if name != "alignatt_tick_anchor_group":
-                return reals[name](*a, **k)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            out = reals[name](*a, **k)
-            torch.cuda.synchronize()
-            peaks.append(torch.cuda.max_memory_allocated())
-            return out
-        return wrapped
-
-    def timed_dispatch(*a, **k):
-        pends = []
-        for mk, idxs, fetch, t_g in real_dispatch(*a, **k):
-            def timed(fetch=fetch, mk=mk, t_g=t_g):
-                res = fetch()
-                phase_ms.setdefault(mk, []).append((time.perf_counter() - t_g) * 1e3)
-                return res
-            pends.append((mk, idxs, timed, t_g))
-        return pends
-
-    for name in LARGE_PROGRAMS:
-        setattr(A, name, wrap(name))
-    D.dispatch_tick_batch = timed_dispatch
     try:
-        # count only the main path's run from here
-        flash_encoder_attn.launches = 0
-        flash_encoder_attn.shapes.clear()
-        xkv_splice.launches = 0
-        engine.scheduler.reset_stats()
-        t1 = time.perf_counter()
-        pcms = [speech_pcm(LARGE_SECONDS, seed=20 + s) for s in range(LARGE_SESSIONS + 1)]
-        procs = [AudioProcessor(transcription_engine=engine) for _ in range(LARGE_SESSIONS)]
-        texts = await asyncio.gather(
-            *(_feed_processor(p, pcm, LARGE_PACE, d) for p, pcm, d in zip(procs, pcms, LARGE_DELAYS)),
-            _feed_websocket(f"http://{host}:{port}/asr", pcms[-1], LARGE_PACE, LARGE_WS_DELAY),
-        )
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
-        launches = {"flash_encoder_attn": flash_encoder_attn.launches,
-                    "xkv_splice": xkv_splice.launches}
-        shapes = dict(flash_encoder_attn.shapes)
+        with Instrumented(LARGE_PROGRAMS + FULL_WINDOW[:2], peak_of="alignatt_tick_anchor_group") as ins:
+            _reset_kernel_counts()
+            engine.scheduler.reset_stats()
+            t1 = time.perf_counter()
+            pcms = [speech_pcm(LARGE_SECONDS, seed=20 + s) for s in range(LARGE_SESSIONS + 1)]
+            procs = [AudioProcessor(transcription_engine=engine) for _ in range(LARGE_SESSIONS)]
+            texts = await asyncio.gather(
+                *(_feed_processor(p, pcm, LARGE_PACE, d) for p, pcm, d in zip(procs, pcms, LARGE_DELAYS)),
+                _feed_websocket(f"http://{host}:{port}/asr", pcms[-1], LARGE_PACE, LARGE_WS_DELAY),
+            )
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            counts = _kernel_counts()
+        langs = [p.transcription.model.detected_language for p in procs]
+        langs.append(next((lang for _, lang in texts[-1] if lang), None))
         stats = engine.scheduler.stats()
         phases = dict(A.TICK_PHASE_STATS)
         eng, xkv = engine.scheduler.engine, engine.scheduler.xkv
@@ -641,14 +971,29 @@ async def _main_path_large() -> dict:
                     prefix_buckets=eng.prefix_buckets, group_width=xkv.group_width,
                     refresh_rows=(A.SKV_REFRESH_ROWS, A._skv_full_refresh_rows(eng, xkv.skv_width)))
     finally:
-        for name, fn in reals.items():
-            setattr(A, name, fn)
-        D.dispatch_tick_batch = real_dispatch
         await runner.cleanup()
         TranscriptionEngine.reset()
-    return dict(texts=texts, wall=wall, init_s=init_s, setup_s=setup_s, launches=launches,
-                shapes=shapes, stats=stats, phases=phases, calls=calls, peaks=peaks,
-                phase_ms=phase_ms, geom=geom)
+    return dict(texts=texts, langs=langs, wall=wall, init_s=init_s, setup_s=setup_s, counts=counts,
+                stats=stats, phases=phases, calls=ins.calls, peaks=ins.peaks,
+                phase_ms=ins.phase_ms, detect_ms=ins.detect_ms, geom=geom)
+
+
+def _check_front_kernels(phase: str, run: dict) -> None:
+    """K3 launched once on every full-window tick of the run, and on some."""
+    full = sum(run["calls"][name] for name in FULL_WINDOW)
+    k3 = run["counts"]["log_mel_pallas"]
+    log(phase, kernel="log_mel_pallas", launches=k3, full_window_ticks=full,
+        launches_by_B_N_mels={"x".join(map(str, k)): n for k, n in sorted(run["counts"]["k3_shapes"].items())})
+    if not full or k3 != full:
+        raise AssertionError(f"K3 launched {k3} times over {full} full-window ticks: {run['calls']}")
+
+
+def _check_languages(phase: str, run: dict) -> None:
+    ms = run["detect_ms"]
+    log(phase, detected_languages=run["langs"], detections=len(ms),
+        detect_ms_p50=_quantile(ms, 0.5), detect_ms_max=_quantile(ms, 1.0))
+    if not all(run["langs"]):
+        raise AssertionError(f"a session never detected its language: {run['langs']}")
 
 
 def phase_large() -> dict:
@@ -665,9 +1010,9 @@ def phase_large() -> dict:
         phase_reference_large(tok_for)
         torch.cuda.empty_cache()
         run = asyncio.run(_main_path_large())
-    stats = run["stats"]
-    words = [sum(len(t.split()) for t in texts) for texts in run["texts"]]
-    shapes = {f"{s}x{t}": n for (s, t), n in sorted(run["shapes"].items())}
+    stats, counts = run["stats"], run["counts"]
+    words = [sum(len(t.split()) for t, _ in lines) for lines in run["texts"]]
+    shapes = {f"{s}x{t}": n for (s, t), n in sorted(counts["k1_shapes"].items())}
     log("large", model="random:large-v3 bf16", group_width=LG, sessions=len(words),
         audio_s_each=LARGE_SECONDS, pace=LARGE_PACE, words_per_session=words,
         wall_s=round(run["wall"], 3), engine_init_s=round(run["init_s"], 3),
@@ -681,20 +1026,23 @@ def phase_large() -> dict:
     log("large", programs=run["calls"], anchor_reasons=stats["anchor_reasons"],
         xkv=stats.get("xkv"),
         anchor_group_peak_GB=round(max(run["peaks"]) / 2**30, 3) if run["peaks"] else None)
-    log("large", kernel="flash_encoder_attn", launches=run["launches"]["flash_encoder_attn"],
-        launches_by_SxT=shapes)
-    log("large", kernel="xkv_splice", launches=run["launches"]["xkv_splice"])
+    log("large", kernel="flash_encoder_attn", launches=counts["flash_encoder_attn"],
+        launches_by_SxT=shapes, per_tick=round(counts["flash_encoder_attn"] / max(stats["n_ticks"], 1), 2))
+    log("large", kernel="xkv_splice", launches=counts["xkv_splice"],
+        per_tick=round(counts["xkv_splice"] / max(stats["n_ticks"], 1), 2))
     if stats["n_failed_ticks"]:
         raise AssertionError(f"{stats['n_failed_ticks']} batch ticks failed")
     if "pool_recovery" in run["phases"]:
         raise AssertionError(f"a lane group recovered: {run['phases']['pool_recovery']}")
+    _check_languages("large", run)
     if not all(words):
         raise AssertionError(f"a session got no words: {words}")
-    if not all(run["calls"].values()):
+    if not all(run["calls"][name] for name in LARGE_PROGRAMS):
         raise AssertionError(f"a pooled program never ran: {run['calls']}")
-    if not all(run["launches"].values()):
-        raise AssertionError(f"a kernel never launched: {run['launches']}")
-    if not (run["shapes"].get((1500, 1500)) and run["shapes"].get((160, 160))):
+    if not all(counts[k] for k in ("flash_encoder_attn", "xkv_splice", "log_mel_pallas")):
+        raise AssertionError(f"a kernel never launched: {counts}")
+    _check_front_kernels("large", run)
+    if not (counts["k1_shapes"].get((1500, 1500)) and counts["k1_shapes"].get((160, 160))):
         raise AssertionError(f"K1 did not launch at the encoder's call sites: {shapes}")
     log("large", geometry=run["geom"])
     return run
@@ -706,9 +1054,17 @@ def main() -> int:
     card = phase_device()
     records = phase_kernels()
     base_launches = phase_main()
+    front = phase_front()
     large = phase_large()
-    large_launches = large["launches"]
-    large_records = phase_kernels_large(large["geom"], large["shapes"])
+    large_records = phase_kernels_large(large["geom"], large["counts"]["k1_shapes"])
+    k3_launched = Counter(front["counts"]["k3_shapes"]) + Counter(large["counts"]["k3_shapes"])
+    k3_records = phase_kernels_k3(k3_launched)
+    # K3's share of the front phase's anchor tick, at its most launched lane count
+    b_front = max(front["counts"]["k3_shapes"].items(), key=lambda kv: kv[1])[0]
+    anchor_p50 = _quantile(front["phase_ms"].get("anchor", []), 0.5)
+    if anchor_p50:
+        log("front", k3_at=f"B{b_front[0]}xN{b_front[1]}x{b_front[2]}", k3_ms=round(k3_records[b_front]["ms"], 4),
+            anchor_tick_p50_ms=anchor_p50, k3_share_of_anchor=round(k3_records[b_front]["ms"] / anchor_p50, 5))
     logging.getLogger().removeHandler(watch)
     log("log", failures=len(watch.failures), expected_notices=watch.expected)
     if watch.failures:
@@ -722,18 +1078,25 @@ def main() -> int:
     k1 = large_records[("flash_encoder_attn", 1500, 1500, "bfloat16")]
     G = large["geom"]["group_width"]
     k2 = large_records[("xkv_splice", G, "bfloat16")]
+    k3 = k3_records[(8, 480000, 80)]
+    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     launches = {"flash_encoder_attn": {"base": base_launches,
-                                       "large": large_launches["flash_encoder_attn"]},
-                "xkv_splice": {"large": large_launches["xkv_splice"]}}
+                                       "front": front["counts"]["flash_encoder_attn"],
+                                       "large": large["counts"]["flash_encoder_attn"]},
+                "xkv_splice": {"large": large["counts"]["xkv_splice"]},
+                "log_mel_pallas": {"front": front["counts"]["log_mel_pallas"],
+                                   "large": large["counts"]["log_mel_pallas"]}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
-         "launches": sum(launches[name].values()), "launches_by_path": launches[name], **rec}
-        for name, rec in (
-            ("flash_encoder_attn", dict(max_abs_err=max(k1_errs), ms=k1["ms"], plain_ms=k1["plain_ms"],
-                                        timed_shape=f"B{G}xH{LH}xS1500xT1500xDh{DH} bf16")),
-            ("xkv_splice", dict(max_abs_err=0.0, ms=k2["ms"], plain_ms=k2["plain_ms"],
-                                timed_shape=f"{large['geom']['n_text_layer']}x{G}x{LH}x{DH}"
-                                            f"x{large['geom']['pool_t']} bf16")),
+         "launches": sum(launches[name].values()), "launches_by_path": launches[name],
+         "max_abs_err": err, **{f: rec[f] for f in fields}, "timed_shape": shape,
+         **{f: rec[f] for f in ("dft_bound_ms",) if f in rec}}
+        for name, rec, err, shape in (
+            ("flash_encoder_attn", k1, max(k1_errs), f"B{G}xH{LH}xS1500xT1500xDh{DH} bf16"),
+            ("xkv_splice", k2, 0.0, f"{large['geom']['n_text_layer']}x{G}x{LH}x{DH}"
+                                    f"x{large['geom']['pool_t']} bf16"),
+            ("log_mel_pallas", k3, max(r["max_abs_err"] for r in k3_records.values()),
+             "B8xN480000, 80 mels, f32"),
         )
     ]}), flush=True)
     print(card, flush=True)

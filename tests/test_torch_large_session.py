@@ -139,6 +139,45 @@ def test_xkv_sessions_commit_identical_tokens(engines, monkeypatch):
     assert any(sum(len(c) for c in s.committed_tokens) for s in sides[1][5])
 
 
+
+def test_auto_language_pooled_sessions_match_jax(engines, monkeypatch, tmp_path):
+    """language="auto" on the pooled routes: when a session detects its
+    language, the reset mirror (skv_tokens = None) turns that very tick
+    into an anchor on both packages, and both commit identical token ids
+    and detect the same language at the same tick."""
+    monkeypatch.setenv("WLK_TPU_ASSET_DIR", str(write_standin_vocab(tmp_path).parent))
+    _, _, tok = engines
+    from whisperlivekit_tpu.streaming.dispatch import run_tick_batch as jax_run
+    from whisperlivekit_tpu_torch.models.whisper.tokenizer import get_tokenizer as port_get
+    from whisperlivekit_tpu_torch.streaming.dispatch import run_tick_batch as torch_run
+
+    jp = JM.init_params(DIMS, jax.random.PRNGKey(0), jnp.float32)
+    tm = TM.params_from_jax_numpy(jax.tree.map(np.asarray, jp), DIMS)
+    cfg = dict(CFG, language="auto")
+    je = JA.AlignAttEngine(jp, DIMS, tok, JA.AlignAttConfig(**cfg))
+    te = TA.AlignAttEngine(tm, DIMS, port_get(True, language="en", task="transcribe"),
+                           TA.AlignAttConfig(**cfg))
+    sides = [(je, jax_run, *_wire(JA, je, 2, 2)), (te, torch_run, *_wire(TA, te, 2, 2))]
+    detect_ticks = [[], []]
+    for tick in range(10):
+        state = []
+        for side, (eng, run, pool, enc_pool, xkv, sessions) in enumerate(sides):
+            tis = []
+            for j, s in enumerate(sessions):
+                s.insert_audio(chunk(30 + 10 * j + tick, seconds=3.0 if not s.segments else 1.0))
+                before = s.detected_language
+                tis.append(s.prepare_tick(False))
+                if before is None and s.detected_language is not None:
+                    detect_ticks[side].append((tick, j, tis[-1].enc_mode))
+            outs = run(eng, tis, eng.tokenizer, pool=pool, enc_pool=enc_pool, xkv=xkv)
+            for s, ti, o in zip(sessions, tis, outs):
+                s.finish_tick(ti, o)
+            state.append([(s.detected_language, [list(c) for c in s.committed_tokens],
+                           ti.enc_mode) for s, ti in zip(sessions, tis)])
+        assert state[0] == state[1], f"tick {tick}"
+    assert detect_ticks[0] == detect_ticks[1] and len(detect_ticks[1]) == 2, detect_ticks
+    assert all(mode == "anchor" for _, _, mode in detect_ticks[1]), detect_ticks
+
 def test_slot_overflow_and_mixed_batch(engines):
     """A second session finds no free slot and takes the EncPool path; a
     batch mixing that lane, a pooled lane and a pool-less (legacy) lane

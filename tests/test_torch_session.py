@@ -184,7 +184,7 @@ def test_failed_tick_is_counted_and_fails_the_smoke(tok, monkeypatch):
 def test_server_health_and_asr_stream(tok):
     from aiohttp.test_utils import TestClient, TestServer
 
-    from whisperlivekit_tpu.config import WLKConfig
+    from whisperlivekit_tpu_torch.config import WLKConfig
     from whisperlivekit_tpu_torch.engine.core import TranscriptionEngine
     from whisperlivekit_tpu_torch.server.app import WLKServer
 
@@ -225,32 +225,139 @@ def test_server_health_and_asr_stream(tok):
 
 
 def test_port_imports_without_jax():
-    """A meta-path finder refuses jax; the port's serving modules and
-    chip_smoke.py still import (import only, main() is not run). The smoke
-    names no module of the JAX package: what it needs of the host-only
-    modules it takes through the port."""
+    """A meta-path finder refuses jax, jaxlib and the JAX package itself;
+    every module of the port (walked with pkgutil) and chip_smoke.py still
+    import (import only, main() is not run). The smoke names no module of
+    the JAX package."""
     smoke = (REPO / "chip_smoke.py").read_text()
     assert not re.search(r"\bwhisperlivekit_tpu\.", smoke)
     assert not re.search(r"\bfrom whisperlivekit_tpu import|\bimport whisperlivekit_tpu\b", smoke)
     code = textwrap.dedent(
         """
-        import sys
-        class NoJax:
+        import importlib, pkgutil, sys
+        REFUSED = ("jax", "jaxlib", "whisperlivekit_tpu")
+        class Refuse:
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib"):
-                    raise ImportError("jax is refused in this process: " + name)
+                if name.split(".")[0] in REFUSED:
+                    raise ImportError("refused in this process: " + name)
                 return None
-        sys.meta_path.insert(0, NoJax())
-        import whisperlivekit_tpu_torch.engine.core
-        import whisperlivekit_tpu_torch.session.processor
-        import whisperlivekit_tpu_torch.server.app
-        import whisperlivekit_tpu_torch.streaming.dispatch
+        sys.meta_path.insert(0, Refuse())
+        import whisperlivekit_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
         import chip_smoke
-        assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
-        print("ok")
+        assert not any(m.split(".")[0] in REFUSED for m in sys.modules)
+        print(" ".join(names))
         """
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300,
     )
-    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-2000:]
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    imported = set(proc.stdout.split())
+    for name in ("engine.core", "session.processor", "server.app", "streaming.dispatch",
+                 "ops.mel_pallas", "decoding.task", "config", "native", "server.web"):
+        assert f"whisperlivekit_tpu_torch.{name}" in imported, name
+
+
+def test_engine_without_a_device_raises_without_cuda(monkeypatch):
+    """The entry points serve on the card: without CUDA they raise, naming
+    device="cpu", rather than fall back to the CPU unasked."""
+    from whisperlivekit_tpu_torch.config import WLKConfig
+    from whisperlivekit_tpu_torch.engine import core
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = WLKConfig(model_size="random:dev-tiny", lan="en", vac=False, param_dtype="float32")
+    core.TranscriptionEngine.reset()
+    try:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            core.TranscriptionEngine(config)
+    finally:
+        core.TranscriptionEngine.reset()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        core.load_whisper_params(config)
+    model, dims, name = core.load_whisper_params(config, device="cpu")
+    assert model.device.type == "cpu" and name == "dev-tiny"
+
+
+# ---------------------------------------------------------------------------
+# Language auto-detect
+# ---------------------------------------------------------------------------
+
+
+def _port_tokenizer(language="en"):
+    from whisperlivekit_tpu_torch.models.whisper.tokenizer import get_tokenizer as port_get
+
+    return port_get(True, language=language, task="transcribe")
+
+
+def test_detect_language_matches_jax(tok):
+    """One decoder step from [sot] over the same encoder features: the same
+    codes, and every language's probability within 1e-5."""
+    from whisperlivekit_tpu.decoding.task import WhisperDecoder as JD
+    from whisperlivekit_tpu_torch.decoding.task import WhisperDecoder as TD
+
+    jp = JM.init_params(DIMS, jax.random.PRNGKey(0), jnp.float32)
+    tm = TM.params_from_jax_numpy(jax.tree.map(np.asarray, jp), DIMS)
+    enc = np.random.default_rng(8).standard_normal(
+        (3, DIMS.n_audio_ctx, DIMS.n_audio_state)).astype(np.float32)
+    jcodes, jprobs = JD(jp, DIMS).detect_language(jnp.asarray(enc), tok)
+    tcodes, tprobs = TD(tm, DIMS).detect_language(torch.from_numpy(enc), _port_tokenizer())
+    assert tcodes == jcodes
+    for t, j in zip(tprobs, jprobs):
+        assert list(t) == list(j)
+        np.testing.assert_allclose(list(t.values()), list(j.values()), rtol=0, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="9.2"):
+        TD(tm, DIMS).decode(None)
+
+
+def test_auto_language_sessions_match_jax(tok):
+    """Two packed sessions per tick with language="auto", in 0.75 s steps:
+    both packages detect the same language at the same tick (2 s past the
+    first timestamp), swap the tokenizer and reset the context, and commit
+    identical token ids after every tick."""
+    jp = JM.init_params(DIMS, jax.random.PRNGKey(0), jnp.float32)
+    tm = TM.params_from_jax_numpy(jax.tree.map(np.asarray, jp), DIMS)
+    cfg = dict(language="auto", max_steps=4, audio_max_len=8.0,
+               enc_tail_frames=128, enc_rewrite_margin=16)
+    je = JA.AlignAttEngine(jp, DIMS, tok, JA.AlignAttConfig(**cfg))
+    te = TA.AlignAttEngine(tm, DIMS, _port_tokenizer(), TA.AlignAttConfig(**cfg))
+
+    from whisperlivekit_tpu.streaming.dispatch import run_tick_batch as jax_run
+    from whisperlivekit_tpu.streaming.pools import AudioPool as JAudio, EncPool as JEnc
+    from whisperlivekit_tpu_torch.streaming.dispatch import run_tick_batch as torch_run
+    from whisperlivekit_tpu_torch.streaming.pools import AudioPool as TAudio, EncPool as TEnc
+
+    sides = []
+    for mod, eng, run, pools in (
+        (JA, je, jax_run, (JAudio(4), JEnc(4, DIMS, dtype=jnp.float32))),
+        (TA, te, torch_run, (TAudio(4), TEnc(4, DIMS, dtype=torch.float32))),
+    ):
+        sessions = []
+        for _ in range(2):
+            s = mod.AlignAttSession(eng)
+            s.pool, s.enc_pool = pools
+            sessions.append(s)
+        sides.append((eng, run, pools, sessions))
+
+    audio = [speechlike(9.0, 20 + i) for i in range(2)]
+    step = 12000
+    detected_at = [[None, None], [None, None]]
+    for tick in range(12):
+        state = []
+        for side, (eng, run, (apool, epool), sessions) in enumerate(sides):
+            tis = []
+            for s, a in zip(sessions, audio):
+                s.insert_audio(a[tick * step : (tick + 1) * step])
+                tis.append(s.prepare_tick(is_last=tick == 11))
+            outs = run(eng, tis, eng.tokenizer, pool=apool, enc_pool=epool)
+            for i, (s, ti, o) in enumerate(zip(sessions, tis, outs)):
+                if s.detected_language is not None and detected_at[side][i] is None:
+                    detected_at[side][i] = tick
+                s.finish_tick(ti, o)
+            state.append([(s.detected_language, [list(c) for c in s.committed_tokens],
+                           s.tokenizer.sot_sequence) for s in sessions])
+        assert state[0] == state[1], f"tick {tick}"
+    assert detected_at[0] == detected_at[1] and None not in detected_at[1], detected_at
+    assert any(sum(len(c) for c in s.committed_tokens) for s in sides[1][3])

@@ -227,11 +227,56 @@ def test_legacy_tick_matches_jax(engines):
                                    rtol=0, atol=1e-5)
 
 
+def test_anchor_with_mel_pallas_matches_jax(engines, monkeypatch):
+    """The base anchor with the fused mel (K3): on the JAX side the Pallas
+    kernel in interpret mode (``_tick_front`` imports it at call time), on
+    the port's its plain version. Integer outputs exact, ``no_speech_p``
+    within 1e-5, the cached encoder rows within 1e-4."""
+    import functools
+
+    from whisperlivekit_tpu.ops import mel_pallas as JMP
+
+    monkeypatch.setattr(JMP, "log_mel_pallas", functools.partial(JMP.log_mel_pallas, interpret=True))
+    je, te, tok = engines
+    B, p_max, max_steps = 2, 32, 4
+    audio = np.zeros((B, N), np.int16)
+    audio[:, : 3 * 16000] = _speechlike(B, 3.0, 6)
+    audio[1, 2 * 16000 :] = 0  # a lane that falls silent: the floor clamps there
+    lanes = np.array([2, 0], np.int32)
+    shape = (3, DIMS.n_audio_ctx, DIMS.n_audio_state)
+    jenc, tenc = jnp.zeros(shape, jnp.float32), torch.zeros(shape)
+    sot = list(tok.sot_sequence_including_notimestamps)
+    arr = dict(
+        prefix=np.full((B, p_max), tok.eot, np.int32), prefix_len=np.full(B, len(sot), np.int32),
+        sot_index=np.zeros(B, np.int32), content_frames=np.full(B, 150, np.int32),
+        last_attend=np.full(B, -200, np.int32), is_last=np.zeros(B, bool),
+        max_new=np.full(B, 50, np.int32), active=np.ones(B, bool),
+    )
+    arr["prefix"][:, : len(sot)] = sot
+    statics = dict(dims=DIMS, p_max=p_max, max_steps=max_steps, eot=tok.eot,
+                   ts_begin=tok.timestamp_begin, no_speech_tok=tok.no_speech,
+                   space_tok=tok.encode(" ")[0], mel_pallas=True)
+    jo, jenc = JA.alignatt_tick_anchor(
+        je.params, jnp.asarray(audio), jenc, jnp.asarray(lanes),
+        *_core_args(arr, je, jnp.asarray, lambda v, k: v), **statics)
+    to, tenc = TA.alignatt_tick_anchor(
+        te.model, torch.from_numpy(audio), tenc, torch.from_numpy(lanes),
+        *_core_args(arr, te, torch.from_numpy, lambda v, k: v), **statics)
+    jo, to = np.asarray(jo), to.numpy()
+    np.testing.assert_array_equal(to[:, :-1], jo[:, :-1])
+    np.testing.assert_allclose(to[:, -1].view(np.float32), jo[:, -1].view(np.float32),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tenc.numpy(), np.asarray(jenc), rtol=0, atol=1e-4)
+    assert np.abs(tenc.numpy()[lanes]).sum() > 0  # the rows were written
+
+
 def test_engine_refuses_what_is_not_ported(engines):
+    """f8 and beam still raise, naming their modules; language auto-detect
+    and the fused mel (K3) are ported and build."""
     _, te, tok = engines
-    for kw, what in ((dict(language="auto"), "decoding/task.py"),
-                     (dict(language="en", mel_pallas=True), "mel_pallas"),
-                     (dict(language="en", xkv_cache_dtype="f8"), "9.1"),
+    for kw, what in ((dict(language="en", xkv_cache_dtype="f8"), "9.1"),
                      (dict(language="en", decoder_type="beam", beam_size=4), "alignatt_beam")):
         with pytest.raises(NotImplementedError, match=what):
             TA.AlignAttEngine(te.model, DIMS, tok, TA.AlignAttConfig(**kw))
+    eng = TA.AlignAttEngine(te.model, DIMS, tok, TA.AlignAttConfig(language="auto", mel_pallas=True))
+    assert eng.cfg.language == "auto" and eng.cfg.mel_pallas

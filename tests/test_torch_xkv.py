@@ -401,6 +401,58 @@ def test_pooled_slice_matches_jax(engines):
     assert any(len(p) > len(sot) for p in prefixes.values())  # tokens were committed
 
 
+def test_anchor_group_with_mel_pallas_matches_jax(engines, monkeypatch):
+    """The whole-group anchor with the fused mel (K3) at 128 mels (the
+    large-v3 front end) on small dims: on the JAX side the Pallas kernel in
+    interpret mode, on the port's its plain version; slot 1 is inactive.
+    Packed integers and the token pool exact, ``no_speech_p`` within 1e-5,
+    the float pools within 1e-4."""
+    import functools
+    from dataclasses import replace
+
+    from whisperlivekit_tpu.ops import mel_pallas as JMP
+
+    monkeypatch.setattr(JMP, "log_mel_pallas", functools.partial(JMP.log_mel_pallas, interpret=True))
+    _, _, tok = engines
+    dims = replace(DIMS, n_mels=128)
+    jp = JM.init_params(dims, jax.random.PRNGKey(1), jnp.float32)
+    tm = TM.params_from_jax_numpy(jax.tree.map(np.asarray, jp), dims)
+    cfg = dict(language="en", max_steps=4, xkv_cache=True, enc_tail_frames=128)
+    je = JA.AlignAttEngine(jp, dims, tok, JA.AlignAttConfig(**cfg))
+    te = TA.AlignAttEngine(tm, dims, tok, TA.AlignAttConfig(**cfg))
+    Wc, p_max = 40, 32
+    sides = _Sides(Wc, int(je.align_layers.shape[0]), seed=31)
+    audio = np.zeros((G, N), np.int16)
+    audio[:, : 4 * 16000] = _speechlike(G, 4.0, 8)
+    active = np.array([True, False, True])
+    sot = list(tok.sot_sequence_including_notimestamps)
+    arr = dict(prefix=np.full((G, p_max), tok.eot, np.int32),
+               prefix_len=np.where(active, len(sot), 1).astype(np.int32),
+               sot_index=np.zeros(G, np.int32),
+               content_frames=np.where(active, 200, 0).astype(np.int32),
+               last_attend=np.full(G, -200, np.int32), is_last=np.zeros(G, bool),
+               max_new=np.full(G, 50, np.int32), active=active)
+    arr["prefix"][:, : len(sot)] = sot
+    names = ("prefix", "prefix_len", "sot_index", "content_frames", "last_attend", "is_last", "max_new")
+    enc_lanes = np.array([1, 0, 2], np.int32)
+    statics = dict(dims=dims, p_max=p_max, max_steps=4, eot=tok.eot, ts_begin=tok.timestamp_begin,
+                   no_speech_tok=tok.no_speech, space_tok=tok.encode(" ")[0], mel_pallas=True)
+    jo, *jpools = JA.alignatt_tick_anchor_group(
+        je.params, jnp.asarray(audio), *sides.jax_pools(), jnp.asarray(enc_lanes),
+        *(jnp.asarray(arr[n]) for n in names), je.suppress_mask, je.align_layers,
+        je.align_heads, jnp.int32(25), jnp.int32(200), jnp.float32(0.5),
+        jnp.asarray(active), je.cif_w, je.cif_b, **statics)
+    to, *tpools = TA.alignatt_tick_anchor_group(
+        te.model, torch.from_numpy(audio), *sides.torch_pools(), torch.from_numpy(enc_lanes),
+        *(torch.from_numpy(arr[n]) for n in names), te.suppress_mask, te.align_layers,
+        te.align_heads, 25, 200, 0.5, torch.from_numpy(active), te.cif_w, te.cif_b, **statics)
+    assert all(t is s for t, s in zip(tpools, sides.torch_pools()))  # in place
+    sides.take_jax(jpools)
+    _packed_equal(to, jo, "anchor_group, mel_pallas")
+    sides.compare("anchor_group, mel_pallas")
+    np.testing.assert_array_equal(sides.t["k"].numpy()[:, 1], sides.np["k"][:, 1])  # inactive slot
+
+
 def test_refresh_scatter_with_duplicate_rows_is_determined(engines):
     """Padded refresh plans park several rows on the scratch position Wc-1;
     the token-mirror scatter then meets duplicate indices, which all carry
@@ -456,8 +508,8 @@ def test_refresh_scatter_with_duplicate_rows_is_determined(engines):
 def test_engine_builds_the_large_form_and_refuses_f8(weights, engines):
     """At d >= 1280 the engine picks the large form (xkv_cache "auto" and
     True): the serving cap and commit budget, the large-v3 tail and top
-    prefix bucket. f8 pools and the fused mel still raise, naming their
-    queue items."""
+    prefix bucket. f8 pools still raise, naming their queue item; language
+    auto-detect and the fused mel (K3) build."""
     _, te, tok = engines
     large = MODEL_DIMS["large-v3"]
     for xkv in ("auto", True):
@@ -466,11 +518,13 @@ def test_engine_builds_the_large_form_and_refuses_f8(weights, engines):
         assert eng.cfg.xkv_cache is True
         assert (eng.serving_prefix_cap, eng.serving_commit_budget) == (96, 16)
         assert eng.cfg.enc_tail_frames == 160 and eng.prefix_buckets[-1] == 256
-    for kw, what in ((dict(xkv_cache_dtype="f8"), "9.1"), (dict(xkv_f8=True), "9.1"),
-                     (dict(mel_pallas=True), "K3")):
+    for kw, what in ((dict(xkv_cache_dtype="f8"), "9.1"), (dict(xkv_f8=True), "9.1")):
         with pytest.raises(NotImplementedError, match=what):
             TA.AlignAttEngine(te.model, large, tok, TA.AlignAttConfig(language="en", **kw),
                               align_pairs=[(0, 0)])
+    eng = TA.AlignAttEngine(te.model, large, tok, TA.AlignAttConfig(language="auto", mel_pallas=True),
+                            align_pairs=[(0, 0)])
+    assert eng.cfg.xkv_cache is True and eng.cfg.mel_pallas
 
 
 def test_inc_pooled_matches_jax(engines):

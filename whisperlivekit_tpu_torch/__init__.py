@@ -3,13 +3,20 @@
 Mirrors the JAX package's module paths and function names
 (``whisperlivekit_tpu.X.Y`` -> ``whisperlivekit_tpu_torch.X.Y``) and keeps
 its public layouts, so each port is held against its JAX counterpart by the
-``tests/test_torch_*.py`` parity tests. Host-only modules that import no JAX
-(config, timed, tokenizer, dims, session alignment/metrics/diff, VAD, web UI)
-are imported from the JAX package rather than copied.
+``tests/test_torch_*.py`` parity tests. The host-only modules (config, CLI,
+timed records, tokenizer, dims, languages, session alignment/metrics/diff,
+ffmpeg, VAD, web page, native PCM runtime) are the port's own copies: it
+imports nothing of the JAX package.
 
-Ported so far: the base-form AlignAtt streaming path (models below d=1280)
-from ``WS /asr`` down to the encoder flash-attention kernel
-(``csrc/flash_encoder.cu``). This package imports ``torch`` and never ``jax``.
+Ported so far: the AlignAtt streaming path in its base form (models below
+d=1280) and its large form (group cross-KV and self-KV pools), from
+``WS /asr`` down to the three hand-written Hopper kernels: encoder and
+prefill attention (``csrc/flash_encoder.cu``), the cross-KV pool splice
+(``csrc/xkv_splice.cu``) and the fused log-mel front end
+(``csrc/log_mel.cu``, behind ``AlignAttConfig.mel_pallas``), with language
+auto-detect. The entry points serve on the card and raise without CUDA
+unless given ``device="cpu"``. This package imports ``torch`` and never
+``jax``.
 """
 
 __version__ = "0.1.0"

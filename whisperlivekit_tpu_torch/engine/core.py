@@ -23,10 +23,9 @@ from typing import Any, Optional
 
 import torch
 
-from whisperlivekit_tpu.config import WLKConfig
-from whisperlivekit_tpu.models.whisper.dims import MODEL_DIMS, ModelDimensions
-from whisperlivekit_tpu.models.whisper.tokenizer import get_tokenizer
-
+from ..config import WLKConfig
+from ..models.whisper.dims import MODEL_DIMS, ModelDimensions
+from ..models.whisper.tokenizer import get_tokenizer
 from ..models.whisper import model as wm
 
 logger = logging.getLogger(__name__)
@@ -44,12 +43,20 @@ def _dtype_from_str(name: str) -> torch.dtype:
 
 
 def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The card. Without CUDA this raises rather than serve on the CPU
+    unasked: tests and CPU tools pass ``device="cpu"`` explicitly."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port serves on the GPU; pass device=\"cpu\" "
+            "to run on the CPU (tests, CPU tools)"
+        )
+    return torch.device("cuda")
 
 
 def load_whisper_params(config: WLKConfig, device=None):
     """Resolve + build whisper weights per config. Returns (model, dims, name).
-    Only ``random:<size>`` is served by this port so far."""
+    Only ``random:<size>`` is served by this port so far. ``device=None``
+    means the card (``default_device``, which raises without CUDA)."""
     device = torch.device(device) if device is not None else default_device()
     dtype = _dtype_from_str(config.param_dtype)
     size = config.model_size
@@ -197,7 +204,7 @@ class TranscriptionEngine:
         if config.vac:
             if config.vad_backend == "jax-batched":
                 raise NotImplementedError("vad_backend='jax-batched' (audio/vad_batched.py) is not ported yet")
-            from whisperlivekit_tpu.audio.vad import load_vad_model
+            from ..audio.vad import load_vad_model
 
             self.vac_model = load_vad_model()
         if config.diarization:

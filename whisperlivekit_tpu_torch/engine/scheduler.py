@@ -36,8 +36,7 @@ import asyncio
 import logging
 from typing import List, Optional
 
-from whisperlivekit_tpu.timed import ASRToken
-
+from ..timed import ASRToken
 from ..streaming.alignatt import (
     ANCHOR_REASONS,
     TICK_PHASE_STATS,

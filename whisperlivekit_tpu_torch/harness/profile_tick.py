@@ -50,8 +50,8 @@ def main(argv=None) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from whisperlivekit_tpu.models.whisper.dims import MODEL_DIMS
-    from whisperlivekit_tpu.models.whisper.tokenizer import get_tokenizer
+    from ..models.whisper.dims import MODEL_DIMS
+    from ..models.whisper.tokenizer import get_tokenizer
 
     from ..models.whisper import model as wm
     from ..ops.flash_encoder import flash_encoder_attn

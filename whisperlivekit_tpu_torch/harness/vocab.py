@@ -4,9 +4,9 @@
 vendor. Random-weight runs only need a vocabulary with Whisper's size and
 special-token layout, so this writes a rank file of 50257 distinct byte
 strings (the 256 single bytes at their byte values, then printable 2-byte
-and 3-byte strings). Loaded by the unchanged
-``whisperlivekit_tpu.models.whisper.tokenizer.get_tokenizer(True, ...)``, it
-gives Whisper's exact special ids: eot 50257, sot 50258, no_speech 50362,
+and 3-byte strings). Loaded by ``models.whisper.tokenizer.get_tokenizer(True,
+...)`` (either package's copy of that module), it gives Whisper's exact
+special ids: eot 50257, sot 50258, no_speech 50362,
 timestamp_begin 50364, and ``encode(" ") == [32]``.
 
 Usage::

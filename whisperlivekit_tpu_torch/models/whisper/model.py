@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from whisperlivekit_tpu.models.whisper.dims import ModelDimensions
+from .dims import ModelDimensions
 
 
 def _flash_attn_available(x: torch.Tensor, dh: int) -> bool:

@@ -20,9 +20,8 @@ from typing import Optional
 
 from aiohttp import WSMsgType, web
 
-from whisperlivekit_tpu.config import WLKConfig, parse_cors_origins
-from whisperlivekit_tpu.session.diff import DiffTracker
-
+from ..config import WLKConfig, parse_cors_origins
+from ..session.diff import DiffTracker
 from ..engine.core import EngineAtCapacity, TranscriptionEngine
 from ..session.processor import AudioProcessor
 
@@ -82,7 +81,7 @@ class WLKServer:
     # ---- endpoints ----------------------------------------------------------
 
     async def index(self, request: web.Request) -> web.Response:
-        from whisperlivekit_tpu.server.web import render_index
+        from .web import render_index
 
         return web.Response(text=render_index(), content_type="text/html")
 
@@ -216,7 +215,7 @@ def create_app(config: Optional[WLKConfig] = None, engine=None) -> web.Applicati
 
 
 def main(config: Optional[WLKConfig] = None) -> None:
-    from whisperlivekit_tpu.cli_args import parse_args
+    from ..cli_args import parse_args
 
     if config is None:
         config = parse_args()

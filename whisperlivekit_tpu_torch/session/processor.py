@@ -39,11 +39,11 @@ from typing import Any, AsyncGenerator, Awaitable, Callable, List, Optional, Uni
 
 import numpy as np
 
-from whisperlivekit_tpu.audio.ffmpeg import FFmpegManager, FFmpegState
-from whisperlivekit_tpu.audio.vad import FixedVADIterator
-from whisperlivekit_tpu.session.alignment import TokensAlignment, resolve_retention_seconds
-from whisperlivekit_tpu.session.metrics import SessionMetrics
-from whisperlivekit_tpu.timed import (
+from ..audio.ffmpeg import FFmpegManager, FFmpegState
+from ..audio.vad import FixedVADIterator
+from .alignment import TokensAlignment, resolve_retention_seconds
+from .metrics import SessionMetrics
+from ..timed import (
     ASRToken,
     ChangeSpeaker,
     FrontData,
@@ -52,7 +52,6 @@ from whisperlivekit_tpu.timed import (
     State,
     Transcript,
 )
-
 from ..engine.core import (
     TranscriptionEngine,
     online_diarization_factory,
@@ -644,7 +643,7 @@ class PcmIngest:
 
     @staticmethod
     def to_float(pcm: Union[bytes, bytearray]) -> np.ndarray:
-        from whisperlivekit_tpu import native
+        from .. import native
 
         return native.s16le_to_f32(bytes(pcm))
 

@@ -31,12 +31,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from whisperlivekit_tpu.models.whisper.dims import ModelDimensions, default_alignment_heads
-from whisperlivekit_tpu.models.whisper.tokenizer import Tokenizer
-
+from ..models.whisper.dims import ModelDimensions, default_alignment_heads
+from ..models.whisper.tokenizer import Tokenizer
 from ..audio.mel import log_mel_spectrogram, pad_or_trim
 from ..models.whisper import model as wm
 from ..ops.median import median_filter
+from ..ops.mel_pallas import log_mel_pallas
 
 logger = logging.getLogger(__name__)
 
@@ -83,7 +83,7 @@ class AlignAttConfig:
     evict_block_s: float = 0.0    # 0 = audio_max_len/2 when enc caching is on
     xkv_f8: bool = False          # f8 cross-KV storage: not ported yet
     xkv_transposed: bool = True   # [B,H,Dh,T] cross-KV layout
-    mel_pallas: bool = False      # fused log-mel kernel (K3): not ported yet
+    mel_pallas: bool = False      # fused log-mel kernel (K3) on full-window ticks
     xkv_cache: object = "auto"    # large-form group cross-KV cache: "auto" = d>=1280
     xkv_cache_dtype: str = "bf16"  # "bf16" = the params dtype; "f8": not ported yet
     xkv_budget_bytes: int = 9 << 30  # device-memory cap for all groups' pools
@@ -146,12 +146,14 @@ def dry_penalty(logits: torch.Tensor, tokens: torch.Tensor, cur_len: torch.Tenso
 
 def _tick_front(model, audio: torch.Tensor, dims: ModelDimensions, mel_pallas: bool = False):
     """Full-window front-end: int16/f32 audio [B, N_SAMPLES] -> enc [B, T, D].
-    int16 PCM converts to float on the device."""
-    if mel_pallas:
-        raise NotImplementedError("log_mel_pallas (ops/mel_pallas.py) is not ported yet")
+    int16 PCM converts to float on the device. ``mel_pallas`` takes the fused
+    log-mel (kernel K3) instead of the plain mel."""
     if audio.dtype == torch.int16:
         audio = audio.float() / 32768.0
-    mel = log_mel_spectrogram(audio, n_mels=dims.n_mels)
+    if mel_pallas:
+        mel = log_mel_pallas(audio, n_mels=dims.n_mels)
+    else:
+        mel = log_mel_spectrogram(audio, n_mels=dims.n_mels)
     mel = pad_or_trim(mel, 2 * dims.n_audio_ctx)
     return wm.encode(model, mel, dims)
 
@@ -838,14 +840,6 @@ class AlignAttEngine:
         model_name: Optional[str] = None,
         align_pairs=None,
     ):
-        if cfg.language == "auto":
-            raise NotImplementedError(
-                "language auto-detect needs decoding/task.py, not ported yet; pass a language"
-            )
-        if cfg.mel_pallas:
-            raise NotImplementedError(
-                "mel_pallas needs ops/mel_pallas.py (K3), not ported yet (ROADMAP queue 2, K3)"
-            )
         if cfg.xkv_f8 or cfg.xkv_cache_dtype == "f8":
             raise NotImplementedError(
                 "f8 cross-KV storage (xkv_f8, xkv_cache_dtype='f8') is not ported yet "

@@ -19,8 +19,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from whisperlivekit_tpu.models.whisper.dims import ModelDimensions
-
+from ..models.whisper.dims import ModelDimensions
 from ..audio.mel import N_SAMPLES
 
 logger = logging.getLogger(__name__)

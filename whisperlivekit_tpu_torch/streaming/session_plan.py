@@ -8,10 +8,10 @@ DecoderState for one stream (reference simul_whisper/simul_whisper.py,
 decoder_state.py), with all tensor work moved into the engine's compiled
 tick. Port of whisperlivekit_tpu/streaming/session_plan.py: host numpy
 logic, copied intact apart from the imports, including the large form's
-group-pool branches (``xkv_alloc``, epoch anchors, self-KV refresh plans).
-Language auto-detect raises (the engine refuses ``language="auto"`` before
-a session exists). Measurements quoted in the comments were taken with the
-JAX package on a TPU v5e, not with this port.
+group-pool branches (``xkv_alloc``, epoch anchors, self-KV refresh plans)
+and language auto-detect (``_maybe_detect_language``: a full-window encode
+and one decoder step, ``decoding/task.py``). Measurements quoted in the
+comments were taken with the JAX package on a TPU v5e, not with this port.
 """
 
 from __future__ import annotations
@@ -21,11 +21,13 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
-from whisperlivekit_tpu.models.whisper.tokenizer import Tokenizer
-from whisperlivekit_tpu.timed import ASRToken
-
-from ..audio.mel import N_SAMPLES, SAMPLE_RATE, TOKENS_PER_SECOND
+from ..audio.mel import N_SAMPLES, SAMPLE_RATE, TOKENS_PER_SECOND, log_mel_spectrogram, pad_or_trim
+from ..decoding.task import WhisperDecoder
+from ..models.whisper import model as wm
+from ..models.whisper.tokenizer import Tokenizer, get_tokenizer
+from ..timed import ASRToken
 from .alignatt import (
     SKV_REFRESH_ROWS,
     STOP_REWIND,
@@ -768,9 +770,34 @@ class AlignAttSession:
             and self.first_timestamp is not None
             and self.segments_len() - self.first_timestamp >= 2.0
         ):
-            raise NotImplementedError(
-                "language auto-detect needs decoding/task.py, not ported yet"
+            eng = self.engine
+            dec = WhisperDecoder(eng.model, eng.dims)
+            mel = pad_or_trim(
+                log_mel_spectrogram(
+                    torch.from_numpy(np.ascontiguousarray(audio, np.float32)).to(eng.device),
+                    n_mels=eng.dims.n_mels,
+                    padding=N_SAMPLES - len(audio),
+                ),
+                2 * eng.dims.n_audio_ctx,
+            )[None]
+            enc = wm.encode(eng.model, mel, eng.dims)
+            codes, _ = dec.detect_language(enc, self.tokenizer)
+            top = codes[0]
+            logger.info("Detected language: %s", top)
+            self.tokenizer = get_tokenizer(
+                True,
+                num_languages=eng.dims.num_languages,
+                language=top,
+                task=self.cfg.task,
             )
+            self.last_attend_frame = -self.cfg.rewind_threshold
+            self.cumulative_time_offset = 0.0
+            self.committed_tokens = []
+            self.context = TokenBufferCtx(
+                self.tokenizer, prefix_token_ids=[self.tokenizer.sot_prev]
+            )
+            self.skv_tokens = None
+            self.detected_language = top
 
     # ---- post-decode helpers (reference align_att_base.py:325-470) -----------
 

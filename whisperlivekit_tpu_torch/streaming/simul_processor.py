@@ -21,8 +21,7 @@ from typing import List, Tuple
 
 import numpy as np
 
-from whisperlivekit_tpu.timed import ASRToken, ChangeSpeaker, Transcript
-
+from ..timed import ASRToken, ChangeSpeaker, Transcript
 from .alignatt import AlignAttEngine, AlignAttSession
 
 logger = logging.getLogger(__name__)
