@@ -6,14 +6,20 @@ Phases (each prints lines; any failure raises and exits non-zero):
 
 1. device  — needs CUDA (there is no CPU path); prints the card's name and
              power limit; builds every kernel of the main paths from csrc/,
-             one nvcc per source, all started together. TF32 is off for
+             one nvcc per source, all started together, and prints each
+             source's build seconds and ptxas report (registers, spills; the
+             bf16 K1 body's shared memory beside it). TF32 is off for
              matrix products and convolutions, so every plain version a
              kernel is held against runs in full f32.
 2. kernels — each kernel against its plain PyTorch version on the card, at
              the shapes the main paths give it, with the kernel's, the plain
-             version's and (K1) the library call's time (CUDA events): K1
-             (flash_encoder_attn) at the base shapes, every prefill bucket
-             and a ragged, poisoned T.
+             version's and (K1) the library call's time (CUDA events over
+             back-to-back calls; for K1 and the library call also the device
+             time alone, from a CUDA graph's replay): K1
+             (flash_encoder_attn) at the base shapes, every prefill bucket,
+             and a ragged T whose padding holds 1e4, inf and nan, in f32 and
+             in bf16, in the encoder's and the pool's layout. Each K1 record
+             names the body it took (k1_plan) and its key splits.
 3. main    — the base form: an f32 tick on the card against the CPU, then
              Whisper ``base`` at full width (random weights from a seed):
              TranscriptionEngine + AudioProcessor sessions fed speech-like
@@ -73,8 +79,11 @@ import torch
 
 from whisperlivekit_tpu_torch.ops import cuda_build
 from whisperlivekit_tpu_torch.ops.flash_encoder import (
+    _lib as _k1_lib,
+    _strides_bhtd,
     flash_encoder_attn,
     flash_encoder_attn_plain,
+    k1_plan,
 )
 from whisperlivekit_tpu_torch.ops.mel_pallas import (
     _log10_mel,
@@ -97,14 +106,17 @@ K1_SHAPES = (
     ("prefill cross-attention", 64, 1500, True),
 )
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the JAX suite's bars
-KERNELS = {  # name -> (source, the TPU kernel it replaces)
-    "flash_encoder_attn": ("whisperlivekit_tpu_torch/csrc/flash_encoder.cu",
+KERNELS = {  # name -> (sources, the first the main paths' (bf16) body; the TPU kernel it replaces)
+    "flash_encoder_attn": (("whisperlivekit_tpu_torch/csrc/flash_encoder_wgmma.cu",
+                            "whisperlivekit_tpu_torch/csrc/flash_encoder.cu"),
                            "whisperlivekit_tpu/ops/flash_encoder.py:73"),
-    "xkv_splice": ("whisperlivekit_tpu_torch/csrc/xkv_splice.cu",
+    "xkv_splice": (("whisperlivekit_tpu_torch/csrc/xkv_splice.cu",),
                    "whisperlivekit_tpu/ops/xkv_merge.py:73"),
-    "log_mel_pallas": ("whisperlivekit_tpu_torch/csrc/log_mel.cu",
+    "log_mel_pallas": (("whisperlivekit_tpu_torch/csrc/log_mel.cu",),
                        "whisperlivekit_tpu/ops/mel_pallas.py:73"),
 }
+SOURCES = [src for srcs, _ in KERNELS.values() for src in srcs]
+WGMMA_BODIES = ("wgmma_tma", "wgmma_cpasync")  # K1's bf16 bodies (tensor cores)
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # tensor cores
@@ -172,17 +184,28 @@ def phase_device() -> str:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as ex:  # one nvcc per source, together
-        libs = list(ex.map(cuda_build.build, [src.rsplit("/", 1)[1][:-3] for src, _ in KERNELS.values()]))
+
+    def build(src):
+        t = time.perf_counter()
+        lib = cuda_build.build(src.rsplit("/", 1)[1][:-3])
+        return lib, time.perf_counter() - t
+    with ThreadPoolExecutor(len(SOURCES)) as ex:  # one nvcc per source, together
+        built = list(ex.map(build, SOURCES))
     log("device", card=repr(card), torch=torch.__version__, cuda=torch.version.cuda,
-        build_s=round(time.perf_counter() - t0, 2), libs=[lib.name for lib in libs],
+        build_s=round(time.perf_counter() - t0, 2), libs=[lib.name for lib, _ in built],
         tf32_matmul=torch.backends.cuda.matmul.allow_tf32, tf32_cudnn=torch.backends.cudnn.allow_tf32)
-    for lib in libs:
+    for src, (lib, secs) in zip(SOURCES, built):
         report = lib.with_suffix(".ptxas.txt")
         ptxas = report.read_text() if report.exists() else ""
+        # ptxas's informational notes (e.g. C7519: a wgmma fence it inserted), counted
+        notes = Counter(w.strip("()") for w in ptxas.split() if w.startswith("(C"))
+        log("device", source=src, build_s=round(secs, 2), ptxas_notes=dict(notes))
         for ln in ptxas.splitlines():
-            if "registers" in ln or "spill" in ln:
+            if "Used" in ln or "spill" in ln:
                 log("device", lib=lib.name, ptxas=repr(ln.strip()))
+    wgmma = _k1_lib("flash_encoder_wgmma")
+    log("device", kernel="flash_encoder_attn bf16 (wgmma)",
+        dynamic_smem_bytes={dh: wgmma.wlk_flash_wgmma_smem_bytes(dh) for dh in (64, 128)})
     return card
 
 
@@ -211,6 +234,49 @@ def _time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _time_graph_ms(fn, reps: int = 20) -> float:
+    """Device time alone: ``reps`` calls captured in one CUDA graph, then
+    replayed (no host work between launches). Warm ``fn`` up first: the
+    capture must not be a kernel's first launch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * reps)
+
+
+def _host_us(fn, n: int = 200) -> float:
+    """The host's cost of one call: back-to-back calls on the host's clock,
+    without waiting for the device (the queue absorbs the launches)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _k1_plan(q, k, v, t_valid: int, vt: bool):
+    return k1_plan(q.dtype, q.shape, k.shape[-1], t_valid, q.stride(), _strides_bhtd(k, True),
+                   _strides_bhtd(v, vt), (q.data_ptr(), k.data_ptr(), v.data_ptr()))
+
+
 def _sdpa(q, k, v, t_valid: int, vt: bool):
     """The library call that computes K1's function: PyTorch's fused
     attention on k transposed, the keys past t_valid cut off (the key mask).
@@ -223,37 +289,78 @@ def _sdpa(q, k, v, t_valid: int, vt: bool):
 def _check_k1(label: str, model: str, S: int, T: int, t_valid: int, vt: bool, dtype, b: int, h: int) -> dict:
     """K1 against its plain version at one call site's shape: checked
     within the tolerance, timed with its plain version and the library call
-    (CUDA events), bounded, logged."""
+    (CUDA events over back-to-back calls, the device time alone from a
+    graph's replay, and the host's cost of a call), bounded, logged with
+    the body and splits it took."""
     q, k, v = _qkv(S, T, vt, dtype, seed=S + T, b=b, h=h)
     if t_valid < T:  # a pool's padding columns hold zeros
         k[..., t_valid:] = 0
         v[..., t_valid:] = 0
+    plan = _k1_plan(q, k, v, t_valid, vt)
     got = flash_encoder_attn(q, k, v, t_valid=t_valid, v_transposed=vt)
     want = flash_encoder_attn_plain(q, k, v, t_valid=t_valid, v_transposed=vt)
     lib_err = (_sdpa(q, k, v, t_valid, vt).float() - want.float()).abs().max().item()
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     ok = bool(torch.isfinite(got.float()).all().item()) and err <= TOL[dtype]
-    ms = _time_ms(lambda: flash_encoder_attn(q, k, v, t_valid=t_valid, v_transposed=vt))
+    k1 = lambda: flash_encoder_attn(q, k, v, t_valid=t_valid, v_transposed=vt)  # noqa: E731
+    lib = lambda: _sdpa(q, k, v, t_valid, vt)  # noqa: E731
+    ms = _time_ms(k1)
+    device_ms = _time_graph_ms(k1)
     plain_ms = _time_ms(lambda: flash_encoder_attn_plain(q, k, v, t_valid=t_valid, v_transposed=vt))
-    library_ms = _time_ms(lambda: _sdpa(q, k, v, t_valid, vt))
+    library_ms = _time_ms(lib)
+    library_device_ms = _time_graph_ms(lib)
+    host_us, library_host_us = _host_us(k1), _host_us(lib)
     # QK^T and PV over the valid keys; q, k, v read once, the output written once
     bound = bound_ms(4 * b * h * S * t_valid * DH,
                      (q.numel() + k.numel() + v.numel() + got.numel()) * q.element_size(), dtype)
     dt = str(dtype).replace("torch.", "")
     log("kernels", kernel="flash_encoder_attn", model=model, shape=f"B{b}xH{h}xS{S}xT{T}xDh{DH}",
-        t_valid=t_valid, call_site=repr(label), dtype=dt, max_abs_err=err, tol=TOL[dtype],
-        ms=round(ms, 4), plain_ms=round(plain_ms, 4), library_ms=round(library_ms, 4),
-        library_abs_err=lib_err, bound_ms=round(bound["bound_ms"], 4), bound_by=bound["bound_by"], ok=ok)
+        t_valid=t_valid, call_site=repr(label), dtype=dt, body=plan.body, n_split=plan.n_split,
+        max_abs_err=err, tol=TOL[dtype], ms=round(ms, 4), device_ms=round(device_ms, 4),
+        plain_ms=round(plain_ms, 4), library_ms=round(library_ms, 4),
+        library_device_ms=round(library_device_ms, 4), host_us=round(host_us, 1),
+        library_host_us=round(library_host_us, 1), library_abs_err=lib_err,
+        bound_ms=round(bound["bound_ms"], 4), bound_by=bound["bound_by"], ok=ok)
     if not ok:
         raise AssertionError(f"flash_encoder_attn disagrees at {model} {label} {dt}: {err}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
+    return dict(max_abs_err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
+                library_device_ms=library_device_ms, host_us=host_us, library_host_us=library_host_us,
+                body=plan.body, n_split=plan.n_split, **bound)
+
+
+def _check_k1_poisoned(layout: str, dtype, poison: float) -> float:
+    """K1 with t_valid < T and the padding columns of k and v holding
+    ``poison``: they must have no effect. "enc": the encoder's strided views,
+    1400 of 1500 keys valid; "pool": the [G,H,Dh,1536] cross-KV pool, 1500
+    valid, under a 96-row prefill."""
+    if layout == "enc":
+        q, k, v = _qkv(1500, 1500, False, dtype, seed=7)
+        t_valid, vt = 1400, False
+    else:
+        q, k, v = _qkv(96, 1536, True, dtype, seed=8, b=LG, h=LH)
+        t_valid, vt = 1500, True
+    k, v = k.clone(), v.clone()
+    k[..., t_valid:] = poison
+    (v[..., t_valid:] if vt else v[:, :, t_valid:]).fill_(poison)
+    plan = _k1_plan(q, k, v, t_valid, vt)
+    got = flash_encoder_attn(q, k, v, t_valid=t_valid, v_transposed=vt)
+    want = flash_encoder_attn_plain(q, k[..., :t_valid], v[..., :t_valid] if vt else v[:, :, :t_valid],
+                                    t_valid=t_valid, v_transposed=vt)
+    err = (got.float() - want.float()).abs().max().item()
+    finite = bool(torch.isfinite(got.float()).all().item())
+    dt = str(dtype).replace("torch.", "")
+    log("kernels", kernel="flash_encoder_attn", case=f"{layout} t_valid={t_valid} of {k.shape[-1]}, padding={poison}",
+        dtype=dt, body=plan.body, n_split=plan.n_split, max_abs_err=err, finite=finite)
+    if not (finite and err <= TOL[dtype]):
+        raise AssertionError(f"masked columns leak into the output ({layout}, {dt}, {poison}): {err}")
+    return err
 
 
 def phase_kernels() -> dict:
     """K1 against its plain version at the base form's three main-path
-    shapes, both dtypes, plus one ragged/poisoned case; returns per-shape
-    records."""
+    shapes, both dtypes, plus ragged T with poisoned padding (f32 and bf16,
+    both layouts); returns per-shape records."""
     records = {}
     for label, S, T, vt in K1_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -271,17 +378,10 @@ def phase_kernels() -> dict:
     log("kernels", kernel="flash_encoder_attn", case="prefill buckets x T1500, v_transposed",
         S=list(PREFIX_BUCKETS), ok=True)
     # ragged T with poisoned padding columns: masked columns have no effect
-    q, k, v = _qkv(1500, 1500, False, torch.float32, seed=7)
-    k = k.clone()
-    v = v.clone()
-    k[..., 1400:] = 1e4
-    v[:, :, 1400:] = -1e4
-    got = flash_encoder_attn(q, k, v, t_valid=1400)
-    want = flash_encoder_attn_plain(q[..., :, :], k[..., :1400], v[:, :, :1400], t_valid=1400)
-    err = (got - want).abs().max().item()
-    log("kernels", kernel="flash_encoder_attn", case="t_valid=1400 poisoned", max_abs_err=err)
-    if not err <= TOL[torch.float32]:
-        raise AssertionError(f"masked columns leak into the output: {err}")
+    for poison in (1e4, float("inf"), float("nan")):
+        _check_k1_poisoned("enc", torch.float32, poison)
+        for layout in ("enc", "pool"):
+            _check_k1_poisoned(layout, torch.bfloat16, poison)
     return records
 
 
@@ -561,15 +661,14 @@ async def _main_path() -> dict:
         )
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
-        launches = flash_encoder_attn.launches
-        shapes = dict(flash_encoder_attn.shapes)
+        counts = _kernel_counts()
         stats = engine.scheduler.stats()
         phases = dict(TICK_PHASE_STATS)
     finally:
         await runner.cleanup()
         TranscriptionEngine.reset()
-    return dict(texts=texts, wall=wall, setup_s=setup_s, launches=launches, shapes=shapes,
-                stats=stats, phases=phases)
+    return dict(texts=texts, wall=wall, setup_s=setup_s, launches=counts["flash_encoder_attn"],
+                shapes=counts["k1_shapes"], counts=counts, stats=stats, phases=phases)
 
 
 def phase_main() -> int:
@@ -595,6 +694,7 @@ def phase_main() -> int:
         log("main", tick_phase=key, **ph)
     log("main", kernel="flash_encoder_attn", launches=run["launches"], launches_by_SxT=shapes,
         per_tick=round(run["launches"] / max(stats["n_ticks"], 1), 2))
+    _check_k1_bodies("main", run["counts"])
     if stats["n_failed_ticks"]:
         raise AssertionError(f"{stats['n_failed_ticks']} batch ticks failed")
     if not all(words):
@@ -742,7 +842,9 @@ def phase_front() -> dict:
             mean_lanes=stats["tick_phases"].get(key, {}).get("mean_lanes"))
     log("front", programs=run["calls"], anchor_reasons=stats["anchor_reasons"])
     log("front", kernel="flash_encoder_attn", launches=counts["flash_encoder_attn"],
+        launches_by_SxT={f"{s}x{t}": n for (s, t), n in sorted(counts["k1_shapes"].items())},
         per_tick=round(counts["flash_encoder_attn"] / max(stats["n_ticks"], 1), 2))
+    _check_k1_bodies("front", counts)
     if stats["n_failed_ticks"]:
         raise AssertionError(f"{stats['n_failed_ticks']} batch ticks failed")
     _check_languages("front", run)
@@ -911,6 +1013,8 @@ def _reset_kernel_counts() -> None:
     """Every kernel's launch counts to 0: the main path's run counts from here."""
     flash_encoder_attn.launches = 0
     flash_encoder_attn.shapes.clear()
+    flash_encoder_attn.bodies.clear()
+    flash_encoder_attn.splits.clear()
     xkv_splice.launches = 0
     log_mel_pallas.launches = 0
     log_mel_pallas.shapes.clear()
@@ -919,7 +1023,17 @@ def _reset_kernel_counts() -> None:
 def _kernel_counts() -> dict:
     return dict(flash_encoder_attn=flash_encoder_attn.launches, xkv_splice=xkv_splice.launches,
                 log_mel_pallas=log_mel_pallas.launches, k1_shapes=dict(flash_encoder_attn.shapes),
+                k1_bodies=dict(flash_encoder_attn.bodies), k1_splits=dict(flash_encoder_attn.splits),
                 k3_shapes=dict(log_mel_pallas.shapes))
+
+
+def _check_k1_bodies(phase: str, counts: dict) -> None:
+    """Every K1 launch of a bf16 main path took a tensor-core (wgmma) body."""
+    bodies, launches = counts["k1_bodies"], counts["flash_encoder_attn"]
+    log(phase, kernel="flash_encoder_attn", launches_by_body=bodies,
+        launches_by_split={str(k): n for k, n in sorted(counts["k1_splits"].items())})
+    if sum(bodies.get(b, 0) for b in WGMMA_BODIES) != launches:
+        raise AssertionError(f"{phase}: K1 launches off the wgmma bodies: {bodies} of {launches}")
 
 
 async def _main_path_large() -> dict:
@@ -1028,6 +1142,7 @@ def phase_large() -> dict:
         anchor_group_peak_GB=round(max(run["peaks"]) / 2**30, 3) if run["peaks"] else None)
     log("large", kernel="flash_encoder_attn", launches=counts["flash_encoder_attn"],
         launches_by_SxT=shapes, per_tick=round(counts["flash_encoder_attn"] / max(stats["n_ticks"], 1), 2))
+    _check_k1_bodies("large", counts)
     log("large", kernel="xkv_splice", launches=counts["xkv_splice"],
         per_tick=round(counts["xkv_splice"] / max(stats["n_ticks"], 1), 2))
     if stats["n_failed_ticks"]:
@@ -1087,10 +1202,11 @@ def main() -> int:
                 "log_mel_pallas": {"front": front["counts"]["log_mel_pallas"],
                                    "large": large["counts"]["log_mel_pallas"]}}
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
+        {"name": name, "route": "cuda", "source": KERNELS[name][0][0], "replaces": KERNELS[name][1],
          "launches": sum(launches[name].values()), "launches_by_path": launches[name],
          "max_abs_err": err, **{f: rec[f] for f in fields}, "timed_shape": shape,
-         **{f: rec[f] for f in ("dft_bound_ms",) if f in rec}}
+         **{f: rec[f] for f in ("dft_bound_ms", "device_ms", "library_device_ms", "body") if f in rec},
+         **({"f32_source": KERNELS[name][0][1]} if len(KERNELS[name][0]) > 1 else {})}
         for name, rec, err, shape in (
             ("flash_encoder_attn", k1, max(k1_errs), f"B{G}xH{LH}xS1500xT1500xDh{DH} bf16"),
             ("xkv_splice", k2, 0.0, f"{large['geom']['n_text_layer']}x{G}x{LH}x{DH}"

@@ -14,17 +14,18 @@
 // streams K/V once per 64-row query tile with an online (running max / sum)
 // softmax, so device memory sees only q, k, v and o.
 //
-// Design (first version, right before fast): one block per (query tile of
-// 64 rows, head, lane), 256 threads on a 16x16 grid; each thread owns 4 rows
-// x 4 score columns of a 64x64 tile and 4 rows x Dh/16 output columns. All
-// products are f32 FMAs on the CUDA cores (no tensor cores yet: wgmma/TMA is
-// later work). K and V arrive through explicit element strides, so one
-// kernel reads V as [T,Dh] or [Dh,T] and q/k/v as strided views of the
-// projections without a transposing copy; the loader maps consecutive
-// threads onto whichever axis has unit stride. Ragged S and T are masked
-// in-kernel (no 128-padding as on the TPU).
+// Design (the f32 body; bf16 runs on the tensor cores in
+// flash_encoder_wgmma.cu): one block per (query tile of 64 rows, head,
+// lane), 256 threads on a 16x16 grid; each thread owns 4 rows x 4 score
+// columns of a 64x64 tile and 4 rows x Dh/16 output columns. All products
+// are f32 FMAs on the CUDA cores, which keeps the f32 results within the
+// 2e-5 of the reference that TF32 tensor cores could not. K and V arrive
+// through explicit element strides, so one kernel reads V as [T,Dh] or
+// [Dh,T] and q/k/v as strided views of the projections without a
+// transposing copy; the loader maps consecutive threads onto whichever axis
+// has unit stride. Ragged S and T are masked in-kernel (no 128-padding as
+// on the TPU).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -42,15 +43,9 @@ struct Strides {
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype() does
-}
 
 // p.astype(v.dtype) of the reference, kept in f32 registers afterwards
 template <typename T> __device__ __forceinline__ float round_to(float x) {
@@ -239,20 +234,16 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
 extern "C" {
 
 // Returns 0 on success, a cudaError_t code when the launch was refused, or
-// -1 for an argument combination the kernel does not take. Strides are 16
-// element strides: q (b,h,s,d), k (b,h,t,d), v (b,h,t,d), o (b,h,s,d).
+// -1 for an argument combination the kernel does not take. f32 only. Strides
+// are 16 element strides: q (b,h,s,d), k (b,h,t,d), v (b,h,t,d), o (b,h,s,d).
 int wlk_flash_encoder_attn(const void* q, const void* k, const void* v, void* o,
-                           int B, int H, int S, int Dh, int t_valid, int is_bf16,
-                           float scale, const long long* strides, void* stream) {
+                           int B, int H, int S, int Dh, int t_valid, float scale,
+                           const long long* strides, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || t_valid <= 0) return -1;
   if (strides[3] != 1) return -1;  // q rows are read with unit Dh stride
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Dh == 64)
-    return is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, o, B, H, S, t_valid, scale, strides, s)
-                   : launch<float, 64>(q, k, v, o, B, H, S, t_valid, scale, strides, s);
-  if (Dh == 128)
-    return is_bf16 ? launch<__nv_bfloat16, 128>(q, k, v, o, B, H, S, t_valid, scale, strides, s)
-                   : launch<float, 128>(q, k, v, o, B, H, S, t_valid, scale, strides, s);
+  if (Dh == 64) return launch<float, 64>(q, k, v, o, B, H, S, t_valid, scale, strides, s);
+  if (Dh == 128) return launch<float, 128>(q, k, v, o, B, H, S, t_valid, scale, strides, s);
   return -1;
 }
 

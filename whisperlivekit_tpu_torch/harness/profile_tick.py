@@ -16,7 +16,8 @@ end-of-text, no-speech, gate or rewind stop), so every lane decodes
 same work per lane. Prints the top operators by device time and by host time, then one
 JSON line with the tick's wall time, device-busy time (the kernels' summed
 device time), idle share, kernel launches per tick and the shares of K1
-(flash_encoder_attn) and K2 (xkv_splice). ``idle_share`` holds the busy
+(flash_encoder_attn: its kernels of either body, launches by body) and
+K2 (xkv_splice). ``idle_share`` holds the busy
 time against the UNTRACED mean tick (the profiler slows the host, not the
 kernels); ``idle_share_traced`` against the traced ticks' wall. Needs
 CUDA; imports no JAX.
@@ -32,6 +33,9 @@ import time
 
 import numpy as np
 import torch
+
+# K1's kernels: the f32 body, the bf16 body and its key-split combine
+K1_KERNELS = ("flash_encoder_kernel", "flash_wgmma_kernel", "flash_combine_kernel")
 
 
 def main(argv=None) -> int:
@@ -114,6 +118,7 @@ def main(argv=None) -> int:
         untraced.append(w)
         untraced_shape.append(sh)
     flash_encoder_attn.launches = 0
+    flash_encoder_attn.bodies.clear()
     xkv_splice.launches = 0
     walls, modes, traced_shape = [], [], []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -126,7 +131,7 @@ def main(argv=None) -> int:
     # kernel rows only: an operator row repeats the time of the kernels it launched
     kernels = [e for e in ev if e.device_type == DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
-    k1_us = sum(e.self_device_time_total for e in kernels if "flash_encoder_kernel" in e.key)
+    k1_us = sum(e.self_device_time_total for e in kernels if any(n in e.key for n in K1_KERNELS))
     k2_us = sum(e.self_device_time_total for e in kernels if "xkv_splice_kernel" in e.key)
     launches = sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
     print(ev.table(sort_by="self_device_time_total", row_limit=15))
@@ -149,6 +154,7 @@ def main(argv=None) -> int:
         "kernels_per_tick": sum(e.count for e in kernels) / args.ticks,
         "k1_ms_per_tick": round(k1_us / 1e3 / args.ticks, 3),
         "k1_launches": flash_encoder_attn.launches,
+        "k1_launches_by_body": dict(flash_encoder_attn.bodies),
         "k2_ms_per_tick": round(k2_us / 1e3 / args.ticks, 3),
         "k2_launches": xkv_splice.launches,
         "device": torch.cuda.get_device_name(0),
