@@ -1,6 +1,14 @@
 """Smoke test of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k3-ab build/parent/log_mel.cu
+
+The second form builds the kernels, then times only K3 against PR 3/4's
+DFT-by-product kernel (another log_mel.cu, e.g. the parent commit's copy in
+a directory .gitignore lists) in turns, old, new, new, old, at B 1, 2, 4
+and 8, 80 and 128 mels, the 30 s window and a ragged 2 s length: both held
+to the plain version, timed by events and by graph replay, beside the new
+kernel's bound and its share of it, and its check below.
 
 Phases (each prints lines; any failure raises and exits non-zero):
 
@@ -31,9 +39,10 @@ Phases (each prints lines; any failure raises and exits non-zero):
              mel (K3) and a language detection on the card against the CPU,
              then ``random:base`` bf16 with ``mel_pallas=True`` and
              ``language="auto"``: AudioProcessor sessions and one ``WS /asr``
-             stream. Checks that every session detected a language and got
-             words, that K3 launched once on every full-window tick, and that
-             no tick failed.
+             stream. Checks that every session detected a language (read
+             from its server-side session; a transcript line that carries a
+             language carries that one) and got words, that K3 launched once
+             on every full-window tick, and that no tick failed.
 5. large   — the large form: one whole-group anchor (fused mel at 128 mels)
              and two pooled inc ticks in f32 at large-v3 widths (4+4 layers)
              on the card against the CPU, then ``random:large-v3`` bf16 at
@@ -50,21 +59,31 @@ Phases (each prints lines; any failure raises and exits non-zero):
              at every (S, T) the large run launched; K2 against its plain
              version exactly, bf16 and f32, at the run's group width and at
              24 lanes, with edge and idle lanes. Then K3 at every lane count
-             the runs launched (and 4 and 8), at 80 and 128 mels, at a ragged
-             length, with an all-zero lane and a lane silent past 5 s.
+             the runs launched (and 4 and 8), at 80 and 128 mels, with a
+             speech-like lane, an all-zero lane and a lane silent past 5 s;
+             at a ragged length (rows not 16-byte aligned) at 1, 2 and 3
+             lanes, and from a row 4 bytes past alignment, both taking the
+             gather route; timed beside two front ends the port does not
+             run in its place (cuFFT's torch.stft chain, and audio/mel.py's
+             log_mel_spectrogram, the main path's without mel_pallas).
 
 The front and large phases also time each language detection on the
 host's clock. The line before the last is the card's name and power limit,
 the one before it the kernels' JSON record, with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and the operations its function needs
-over the peak rate of their type (for K3 a real FFT of each frame; its
-``dft_bound_ms`` counts the DFT-by-product formulation the kernel uses).
+over the peak rate of their type (for K3 a real FFT of each frame, which
+the kernel computes, and as bytes the audio, the log-mel and the filters'
+nonzero weights; its ``dft_bound_ms`` counts the TPU kernel's
+DFT-by-product formulation). K3 must take the bulk-copy route on every
+main-path launch (30 s rows, 16-byte aligned).
 The last line is ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import asyncio
+import ctypes
 import json
 import logging
 import math
@@ -85,10 +104,16 @@ from whisperlivekit_tpu_torch.ops.flash_encoder import (
     flash_encoder_attn_plain,
     k1_plan,
 )
+from whisperlivekit_tpu_torch.audio.mel import _const, log_mel_spectrogram
+from whisperlivekit_tpu_torch.harness.signals import speech_like
 from whisperlivekit_tpu_torch.ops.mel_pallas import (
+    _floor_and_scale,
     _log10_mel,
     _log10_mel_plain,
+    _mel_compact,
     _mel_ranges,
+    _plain_tables,
+    k3_plan,
     log_mel_pallas,
     log_mel_pallas_plain,
 )
@@ -462,63 +487,159 @@ def phase_kernels_large(geom: dict, launched: dict) -> dict:
 K3_TOL = dict(rtol=1e-4, atol=2e-4)  # the JAX suite's bar (tests/test_mel_pallas.py), f32 sum order
 
 
-def _check_k3(B: int, N: int, n_mels: int, seed: int) -> dict:
-    """K3 against its plain version on the card (the plain side's products
-    run in full f32: TF32 is off), with an all-zero lane and a lane silent
-    past 5 s where there are lanes for them; the kernel alone (log10 mel,
-    without the floor that follows it) timed against its plain version,
-    bounded, logged."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    audio = 0.2 * torch.randn(B, N, generator=g, device="cuda")
-    if B >= 2:
-        audio[1] = 0
+def _k3_audio(B: int, N: int, seed: int, offset: int) -> torch.Tensor:
+    """[B, N] f32 on the card: a speech-like lane, an all-zero lane, a
+    speech-like lane silent past 5 s, then speech-like and white-noise lanes
+    in turn; ``offset`` floats past a 16-byte aligned address."""
+    rng = np.random.default_rng(seed)
+    lanes = np.stack([
+        np.zeros(N, np.float32) if i == 1
+        else (0.2 * rng.standard_normal(N)).astype(np.float32) if i >= 3 and i % 2
+        else speech_like(N, seed + i, f0=120.0 + 15 * i)
+        for i in range(B)])
     if B >= 3:
-        audio[2, 5 * 16000:] = 0
+        lanes[2, 5 * 16000:] = 0
+    flat = torch.zeros(B * N + offset, device="cuda")
+    audio = flat[offset:].view(B, N)
+    audio.copy_(torch.from_numpy(lanes))
+    return audio
+
+
+def stft_chain(audio: torch.Tensor, n_mels: int) -> torch.Tensor:
+    """log10 mel power through cuFFT: torch.stft, |.|^2, filterbank, log10.
+    A front end the port never runs in K3's place, timed beside it."""
+    spec = torch.stft(audio, 400, 160, window=torch.hann_window(400, device=audio.device), center=True,
+                      pad_mode="reflect", return_complex=True)
+    power = torch.view_as_real(spec[..., :-1]).square().sum(-1)
+    return torch.log10(torch.clamp(_const("mel", n_mels, audio.device) @ power, min=1e-10))
+
+
+def k3_bound(B: int, N: int, n_mels: int) -> tuple:
+    """(bound, dft_bound) of K3's function at audio [B, N]. The bound counts
+    what the log-mel function needs: a real FFT of each 400-tap frame (2.5 n
+    log2 n, half the 5 n log2 n of a complex one), the power of its 201
+    bins, the filters' nonzero weights; audio in, the filters' nonzero
+    weights and their bin ranges in, log-mel out. The bytes rule at every
+    shape checked here. ``dft_bound`` is the same for the TPU kernel's
+    DFT-by-product formulation (the PR 3/4 kernel's): 402 outputs of 400
+    taps, with the padded basis and dense filterbank read once."""
+    T = N // 160
+    nnz = _mel_compact(n_mels)[0].size
+    io_bytes = 4 * (B * N + B * n_mels * T)
+    ops = B * T * (2.5 * 400 * math.log2(400) + 3 * 201 + 2 * nnz)
+    dft_ops = 2 * B * T * 400 * 402 + 3 * B * T * 201 + 2 * B * T * nnz
+    return (bound_ms(ops, io_bytes + 4 * (nnz + 2 * n_mels)),
+            bound_ms(dft_ops, io_bytes + 4 * (480 * 512 + 256 * 128 + 2 * n_mels)))
+
+
+def _check_k3(B: int, N: int, n_mels: int, seed: int, offset: int = 0) -> dict:
+    """K3 against its plain version on the card (the plain side's products
+    run in full f32: TF32 is off); the kernel alone (log10 mel, without the
+    floor that follows it) timed by events and as device time alone (graph
+    replay), beside its plain version, cuFFT's torch.stft chain and the
+    default front end (audio/mel.py); bounded, logged with its plan."""
+    audio = _k3_audio(B, N, seed, offset)
+    plan = k3_plan(B, N, n_mels, audio.data_ptr())
     got = log_mel_pallas(audio, n_mels)
     want = log_mel_pallas_plain(audio, n_mels)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     ok = bool(torch.isfinite(got).all().item()) and torch.allclose(got, want, **K3_TOL)
-    ms = _time_ms(lambda: _log10_mel(audio, n_mels))
+    k3 = lambda: _log10_mel(audio, n_mels)  # noqa: E731
+    stft = lambda: stft_chain(audio, n_mels)  # noqa: E731
+    front = lambda: log_mel_spectrogram(audio, n_mels)  # noqa: E731
+    ms, device_ms = _time_ms(k3), _time_graph_ms(k3)
     plain_ms = _time_ms(lambda: _log10_mel_plain(audio, n_mels))
-    T = N // 160
-    nnz = int((_mel_ranges(n_mels)[:, 1] - _mel_ranges(n_mels)[:, 0]).sum())
-    # What the log-mel function needs: a real FFT of each 400-tap frame
-    # (2.5 n log2 n, half the 5 n log2 n of a complex one), the power of its
-    # 201 bins, the filters' nonzero weights; audio and the filterbank in,
-    # log-mel out. The bytes rule at every shape checked here.
-    ops = B * T * (2.5 * 400 * math.log2(400) + 3 * 201 + 2 * nnz)
-    nbytes = 4 * (B * N + B * n_mels * T + 256 * 128 + 2 * n_mels)
-    bound = bound_ms(ops, nbytes)
-    # The same bound for the DFT-by-product formulation that the kernel (and
-    # the TPU kernel) uses: 402 outputs of 400 taps, with the basis read once
-    dft_ops = 2 * B * T * 400 * 402 + 3 * B * T * 201 + 2 * B * T * nnz
-    dft_bound = bound_ms(dft_ops, nbytes + 4 * 480 * 512)
-    log("kernels", kernel="log_mel_pallas", shape=f"B{B}xN{N}", n_mels=n_mels, max_abs_err=err,
-        rtol=K3_TOL["rtol"], atol=K3_TOL["atol"], ms=round(ms, 4), plain_ms=round(plain_ms, 4),
-        bound_ms=round(bound["bound_ms"], 5), bound_by=bound["bound_by"],
-        dft_bound_ms=round(dft_bound["bound_ms"], 4), dft_bound_by=dft_bound["bound_by"],
-        dft_TFLOP_per_s=round(dft_ops / ms / 1e9, 1), ok=ok)
+    stft_ms, stft_device_ms = _time_ms(stft), _time_graph_ms(stft)
+    front_ms, front_device_ms = _time_ms(front), _time_graph_ms(front)
+    bound, dft_bound = k3_bound(B, N, n_mels)
+    log("kernels", kernel="log_mel_pallas", shape=f"B{B}xN{N}", n_mels=n_mels, route=plan.route,
+        tiles=plan.tiles, bulk_tiles=plan.bulk_tiles, row_offset_bytes=4 * offset, max_abs_err=err,
+        rtol=K3_TOL["rtol"], atol=K3_TOL["atol"], ms=round(ms, 4), device_ms=round(device_ms, 4),
+        plain_ms=round(plain_ms, 4), stft_chain_ms=round(stft_ms, 4),
+        stft_chain_device_ms=round(stft_device_ms, 4), default_front_ms=round(front_ms, 4),
+        default_front_device_ms=round(front_device_ms, 4), bound_ms=round(bound["bound_ms"], 5),
+        bound_by=bound["bound_by"], bound_share=round(bound["bound_ms"] / device_ms, 3),
+        dft_bound_ms=round(dft_bound["bound_ms"], 4), ok=ok)
     if not ok:
         raise AssertionError(f"log_mel_pallas disagrees at B={B} N={N} n_mels={n_mels}: {err}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **bound,
+    return dict(max_abs_err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
+                stft_chain_ms=stft_ms, stft_chain_device_ms=stft_device_ms, default_front_ms=front_ms,
+                default_front_device_ms=front_device_ms, load_route=plan.route, **bound,
                 dft_bound_ms=dft_bound["bound_ms"])
 
 
 def phase_kernels_k3(launched: dict) -> dict:
     """K3 at every lane count the main paths launched it with (and 4 and 8,
-    the base anchor's), at the full window, for 80 and 128 mels, and at a
-    ragged length; fails if a run launched K3 at an unchecked shape."""
+    the base anchor's), at the full window, for 80 and 128 mels; at a ragged
+    length whose rows are not 16-byte aligned at 1, 2 and 3 lanes; and from
+    a row 4 bytes past alignment. Fails if a run launched K3 at an unchecked
+    shape."""
     records = {}
     lanes = sorted({b for b, _, _ in launched} | {4, 8})
-    cases = [(b, 480000, m) for b in lanes for m in (80, 128)]
-    cases += [(2, 32000 + 77, 80), (3, 32000 + 77, 128)]  # 2 s and a bit: ragged
-    for i, (b, n, m) in enumerate(cases):
-        records[(b, n, m)] = _check_k3(b, n, m, seed=100 + i)
+    cases = [(b, 480000, m, 0) for b in lanes for m in (80, 128)]
+    cases += [(1, 32077, 80, 0), (1, 32077, 128, 0), (2, 32077, 80, 0), (3, 32077, 128, 0)]
+    cases += [(2, 480000, 80, 1)]
+    for i, (b, n, m, off) in enumerate(cases):
+        records[(b, n, m) + (("unaligned",) if off else ())] = _check_k3(b, n, m, seed=100 + i, offset=off)
     unchecked = set(launched) - set(records)
     if unchecked:
         raise AssertionError(f"the runs launched K3 at unchecked shapes {sorted(unchecked)}")
     return records
+
+
+def _dft_k3(src: str):
+    """Build PR 3/4's DFT-by-product log_mel.cu (``src``, e.g. the parent
+    commit's copy under build/) with the port's nvcc flags and return its
+    call: CUDA audio [B, N] -> log10 mel [B, n_mels, N // 160]. Its C entry
+    is wlk_log_mel(audio, dft, filters, ranges, out, B, N, n_mels, stream),
+    on the plain version's padded basis and filterbank."""
+    out = cuda_build.BUILD_DIR / "liblog_mel_dft.so"
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out), src],
+                   check=True, timeout=600)
+    lib = ctypes.CDLL(str(out))
+    lib.wlk_log_mel.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.wlk_log_mel.restype = ctypes.c_int
+    ranges = {m: torch.from_numpy(_mel_ranges(m)).cuda() for m in (80, 128)}  # made before any capture
+
+    def call(audio: torch.Tensor, n_mels: int) -> torch.Tensor:
+        B, N = audio.shape
+        tables = (*_plain_tables(n_mels, audio.device), ranges[n_mels])
+        out = torch.empty((B, n_mels, N // 160), device=audio.device)
+        rc = lib.wlk_log_mel(audio.data_ptr(), *(t.data_ptr() for t in tables), out.data_ptr(), B, N,
+                             n_mels, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"the DFT-by-product log_mel launch failed ({rc})")
+        return out
+    return call
+
+
+def phase_k3_ab(src: str) -> None:
+    """K3 against PR 3/4's DFT-by-product kernel in turns (old, new, new,
+    old) at B 1, 2, 4 and 8, 80 and 128 mels, the 30 s window and a ragged
+    2 s length, on the lanes of the smoke's K3 check: both held to the
+    plain version, then timed by events and by graph replay; then the new
+    kernel's own check (_check_k3: its bound, cuFFT's chain, the default
+    front end) on the same lanes."""
+    old = _dft_k3(src)
+    for i, (N, B, m) in enumerate((n, b, m) for n in (480000, 32077) for b in (1, 2, 4, 8) for m in (80, 128)):
+        audio = _k3_audio(B, N, seed=300 + i, offset=0)
+        got, want = _floor_and_scale(old(audio, m)), log_mel_pallas_plain(audio, m)
+        old_err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, **K3_TOL):
+            raise AssertionError(f"the DFT-by-product K3 disagrees at B={B} N={N} n_mels={m}: {old_err}")
+        fns = {"old": lambda: old(audio, m), "new": lambda: _log10_mel(audio, m)}  # noqa: B023
+        times = {"old": [], "new": []}
+        for name in ("old", "new", "new", "old"):
+            times[name].append((_time_ms(fns[name]), _time_graph_ms(fns[name])))
+        rec = _check_k3(B, N, m, seed=300 + i)  # the new kernel on the same lanes
+        new_device = min(t for _, t in times["new"])
+        log("k3_ab", shape=f"B{B}xN{N}", n_mels=m, old_max_abs_err=old_err,
+            old_ms=[round(t, 4) for t, _ in times["old"]], old_device_ms=[round(t, 4) for _, t in times["old"]],
+            new_ms=[round(t, 4) for t, _ in times["new"]], new_device_ms=[round(t, 4) for _, t in times["new"]],
+            bound_ms=round(rec["bound_ms"], 5), bound_share=round(rec["bound_ms"] / new_device, 3),
+            speedup_device=round(min(t for _, t in times["old"]) / new_device, 2))
 
 
 def phase_reference() -> None:
@@ -809,13 +930,12 @@ async def _main_path_front() -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t1
             counts = _kernel_counts()
-        langs = [p.transcription.model.detected_language for p in procs]
-        langs.append(next((lang for _, lang in texts[-1] if lang), None))
+        langs, line_langs = _session_languages(ins, procs, texts)
         stats = engine.scheduler.stats()
     finally:
         await runner.cleanup()
         TranscriptionEngine.reset()
-    return dict(texts=texts, langs=langs, wall=wall, setup_s=setup_s, counts=counts,
+    return dict(texts=texts, langs=langs, line_langs=line_langs, wall=wall, setup_s=setup_s, counts=counts,
                 stats=stats, calls=ins.calls, phase_ms=ins.phase_ms, detect_ms=ins.detect_ms)
 
 
@@ -960,6 +1080,7 @@ class Instrumented:
         self.A, self.D, self.S, self.peak_of = A, D, AlignAttSession, peak_of
         self.calls = dict.fromkeys(programs, 0)
         self.peaks, self.phase_ms, self.detect_ms = [], {}, []
+        self.sessions = {}  # id -> every AlignAttSession that prepared a tick, in order
 
     def _wrap(self, name, real):
         def wrapped(*a, **k):
@@ -994,6 +1115,7 @@ class Instrumented:
         self.real_detect = self.S._maybe_detect_language
 
         def timed_detect(sess, audio):
+            self.sessions.setdefault(id(sess), sess)
             before, t = sess.detected_language, time.perf_counter()
             self.real_detect(sess, audio)
             if before is None and sess.detected_language is not None:
@@ -1018,13 +1140,14 @@ def _reset_kernel_counts() -> None:
     xkv_splice.launches = 0
     log_mel_pallas.launches = 0
     log_mel_pallas.shapes.clear()
+    log_mel_pallas.routes.clear()
 
 
 def _kernel_counts() -> dict:
     return dict(flash_encoder_attn=flash_encoder_attn.launches, xkv_splice=xkv_splice.launches,
                 log_mel_pallas=log_mel_pallas.launches, k1_shapes=dict(flash_encoder_attn.shapes),
                 k1_bodies=dict(flash_encoder_attn.bodies), k1_splits=dict(flash_encoder_attn.splits),
-                k3_shapes=dict(log_mel_pallas.shapes))
+                k3_shapes=dict(log_mel_pallas.shapes), k3_routes=dict(log_mel_pallas.routes))
 
 
 def _check_k1_bodies(phase: str, counts: dict) -> None:
@@ -1075,8 +1198,7 @@ async def _main_path_large() -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t1
             counts = _kernel_counts()
-        langs = [p.transcription.model.detected_language for p in procs]
-        langs.append(next((lang for _, lang in texts[-1] if lang), None))
+        langs, line_langs = _session_languages(ins, procs, texts)
         stats = engine.scheduler.stats()
         phases = dict(A.TICK_PHASE_STATS)
         eng, xkv = engine.scheduler.engine, engine.scheduler.xkv
@@ -1087,27 +1209,46 @@ async def _main_path_large() -> dict:
     finally:
         await runner.cleanup()
         TranscriptionEngine.reset()
-    return dict(texts=texts, langs=langs, wall=wall, init_s=init_s, setup_s=setup_s, counts=counts,
+    return dict(texts=texts, langs=langs, line_langs=line_langs, wall=wall, init_s=init_s,
+                setup_s=setup_s, counts=counts,
                 stats=stats, phases=phases, calls=ins.calls, peaks=ins.peaks,
                 phase_ms=ins.phase_ms, detect_ms=ins.detect_ms, geom=geom)
 
 
 def _check_front_kernels(phase: str, run: dict) -> None:
-    """K3 launched once on every full-window tick of the run, and on some."""
+    """K3 launched once on every full-window tick of the run, and on some,
+    each time on the bulk-copy route (30 s rows, 16-byte aligned)."""
     full = sum(run["calls"][name] for name in FULL_WINDOW)
-    k3 = run["counts"]["log_mel_pallas"]
-    log(phase, kernel="log_mel_pallas", launches=k3, full_window_ticks=full,
+    k3, routes = run["counts"]["log_mel_pallas"], run["counts"]["k3_routes"]
+    log(phase, kernel="log_mel_pallas", launches=k3, full_window_ticks=full, launches_by_route=routes,
         launches_by_B_N_mels={"x".join(map(str, k)): n for k, n in sorted(run["counts"]["k3_shapes"].items())})
     if not full or k3 != full:
         raise AssertionError(f"K3 launched {k3} times over {full} full-window ticks: {run['calls']}")
+    if routes.get("bulk", 0) != k3:
+        raise AssertionError(f"{phase}: K3 launches off the bulk route: {routes} of {k3}")
+
+
+def _session_languages(ins: Instrumented, procs: list, texts: list) -> tuple:
+    """Each session's detected language, read from its server-side session
+    (the in-process ones, then the one behind ``WS /asr``), and the
+    languages its transcript lines carry. A line carries one only when it
+    holds words committed after the detection, so the lines alone cannot
+    say whether a session detected."""
+    own = [p.transcription.model for p in procs]
+    ws = [s for s in ins.sessions.values() if all(s is not o for o in own)]
+    langs = [s.detected_language for s in own + ws]
+    on_lines = [sorted({lang for _, lang in lines if lang}) for lines in texts]
+    return langs, on_lines
 
 
 def _check_languages(phase: str, run: dict) -> None:
-    ms = run["detect_ms"]
-    log(phase, detected_languages=run["langs"], detections=len(ms),
+    ms, langs, on_lines = run["detect_ms"], run["langs"], run["line_langs"]
+    log(phase, detected_languages=langs, line_languages=on_lines, detections=len(ms),
         detect_ms_p50=_quantile(ms, 0.5), detect_ms_max=_quantile(ms, 1.0))
-    if not all(run["langs"]):
-        raise AssertionError(f"a session never detected its language: {run['langs']}")
+    if len(langs) != len(on_lines) or not all(langs):
+        raise AssertionError(f"a session never detected its language: {langs} over {len(on_lines)} sessions")
+    if any(seen not in ([], [lang]) for lang, seen in zip(langs, on_lines)):
+        raise AssertionError(f"lines carry another language than their session's: {on_lines} vs {langs}")
 
 
 def phase_large() -> dict:
@@ -1163,7 +1304,16 @@ def phase_large() -> dict:
     return run
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--k3-ab", metavar="LOG_MEL_CU", default=None,
+                    help="only time K3 against PR 3/4's DFT-by-product log_mel.cu at this path, in turns")
+    args = ap.parse_args(argv)
+    if args.k3_ab:
+        card = phase_device()
+        phase_k3_ab(args.k3_ab)
+        print(card, flush=True)
+        return 0
     watch = LogWatch()
     logging.getLogger().addHandler(watch)
     card = phase_device()
@@ -1205,7 +1355,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": KERNELS[name][0][0], "replaces": KERNELS[name][1],
          "launches": sum(launches[name].values()), "launches_by_path": launches[name],
          "max_abs_err": err, **{f: rec[f] for f in fields}, "timed_shape": shape,
-         **{f: rec[f] for f in ("dft_bound_ms", "device_ms", "library_device_ms", "body") if f in rec},
+         **{f: rec[f] for f in ("dft_bound_ms", "device_ms", "library_device_ms", "body", "load_route",
+                                 "stft_chain_ms", "default_front_ms") if f in rec},
          **({"f32_source": KERNELS[name][0][1]} if len(KERNELS[name][0]) > 1 else {})}
         for name, rec, err, shape in (
             ("flash_encoder_attn", k1, max(k1_errs), f"B{G}xH{LH}xS1500xT1500xDh{DH} bf16"),

@@ -181,6 +181,42 @@ def test_failed_tick_is_counted_and_fails_the_smoke(tok, monkeypatch):
     assert watch.expected == 1
 
 
+@pytest.mark.parametrize("case, ws_lang, ws_lines, ws_ticked, ok", [
+    ("ws detected, its lines hold only a pre-detection buffer", "yi", [("a b", None)], True, True),
+    ("ws detected, its lines carry the language", "yi", [("a", "yi"), ("b", None)], True, True),
+    ("ws never detected", None, [("a b", None)], True, False),
+    ("ws lines carry another language", "yi", [("a", "en")], True, False),
+    ("ws session never prepared a tick", None, [], False, False),
+])
+def test_smoke_reads_each_sessions_language_on_the_server(case, ws_lang, ws_lines, ws_ticked, ok):
+    """The smoke's language check reads every session's detected language
+    from its server-side session, the one behind ``WS /asr`` included: a
+    session's lines carry a language only once words are committed after the
+    detection, so they may hold none even when the session detected."""
+    from types import SimpleNamespace
+
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+
+    own = [SimpleNamespace(detected_language="yi") for _ in range(2)]
+    procs = [SimpleNamespace(transcription=SimpleNamespace(model=s)) for s in own]
+    ticked = own + ([SimpleNamespace(detected_language=ws_lang)] if ws_ticked else [])
+    ins = SimpleNamespace(sessions={id(s): s for s in ticked})
+    texts = [[("a", "yi")], [("b", None)], ws_lines]
+    langs, line_langs = chip_smoke._session_languages(ins, procs, texts)
+    run = dict(detect_ms=[1.0] * sum(bool(s.detected_language) for s in ticked),
+               langs=langs, line_langs=line_langs)
+    if ok:
+        chip_smoke._check_languages("front", run)
+        assert langs == ["yi"] * 3
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke._check_languages("front", run)
+
+
 def test_server_health_and_asr_stream(tok):
     from aiohttp.test_utils import TestClient, TestServer
 
