@@ -53,12 +53,26 @@ Phases (each prints lines; any failure raises and exits non-zero):
              that K1, K2 and K3 launched during the run, that every session
              detected a language and got words, and that no tick failed and
              no group recovered.
-6. kernels — the large form's kernels at the shapes its engine gives them:
+6. load    — a large-v3-turbo checkpoint at full width (1280 wide, 32+4
+             layers, 128 mels), written as an OpenAI .pt of f16 tensors
+             drawn from a seed (about 1.6 GB, in a temporary directory,
+             deleted at the end), loaded onto the card with load_model and
+             held bit for bit to the same file loaded on the CPU (load
+             seconds, peak host RSS, peak card memory); then served by
+             TranscriptionEngine(model_path=...) with mel_pallas=True through
+             create_app on localhost: POST /v1/audio/transcriptions twice in
+             json at once, then in verbose_json; WS /v1/listen and WS /asr at
+             once; and the CLI's transcribe (TestHarness) in this process.
+             Checks every answer (200s, clean closes), that the two json
+             posts agree, that no tick failed and no group recovered, and
+             that K1 (wgmma), K2 and K3 (bulk route) launched.
+7. kernels — the large form's kernels at the shapes its engines give them:
              K1 at the encoder's two shapes, every prefix bucket over the
              dense cross-KV and over the pool, and both refresh widths, and
-             at every (S, T) the large run launched; K2 against its plain
-             version exactly, bf16 and f32, at the run's group width and at
-             24 lanes, with edge and idle lanes. Then K3 at every lane count
+             at every (S, T) the large and load runs launched; K2 against
+             its plain version exactly, bf16 and f32, at each run's pool
+             depth and group width and at 24 lanes, with edge and idle
+             lanes. Then K3 at every lane count
              the runs launched (and 4 and 8), at 80 and 128 mels, with a
              speech-like lane, an all-zero lane and a lane silent past 5 s;
              at a ragged length (rows not 16-byte aligned) at 1, 2 and 3
@@ -178,7 +192,7 @@ class LogWatch(logging.Handler):
     EXPECTED = (
         "Initializing RANDOM weights",  # the smoke runs random weights
         "[SimulStreaming guard]",       # policy reset on a looping hypothesis
-        "Audio buffer too large",       # backpressure at 10x real-time feed
+        "Audio buffer too large",       # backpressure when a feed outruns its ticks
     )
 
     def __init__(self):
@@ -460,27 +474,32 @@ def _check_k2(shape, win_list, dtype) -> dict:
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **bound)
 
 
-def phase_kernels_large(geom: dict, launched: dict) -> dict:
-    """The large form's kernels at the shapes its engine gives them (see
-    k1_large_cases; K2 at the run's group width and at 24 lanes). Fails if
-    the large run launched K1 at an (S, T) not checked here. Returns
-    per-case records."""
+def phase_kernels_large(geoms: dict, launched: dict) -> dict:
+    """The large form's kernels at the shapes its engines give them, for
+    each run's geometry (``geoms``: model -> geometry; see k1_large_cases;
+    K2 at each run's pool depth and group width, and at 24 lanes). Fails if
+    a run launched K1 at an (S, T) not checked here. Returns per-case
+    records."""
     records = {}
-    G = geom["group_width"]
-    cases = k1_large_cases(geom)
-    for label, S, T, tv, vt in cases:
-        for dtype in (torch.bfloat16, torch.float32):
-            rec = _check_k1(label, "large-v3", S, T, tv, vt, dtype, G, LH)
-            records[("flash_encoder_attn", S, T, str(dtype).replace("torch.", ""))] = rec
-    unchecked = set(launched) - {(S, T) for _, S, T, _, _ in cases}
+    checked = set()
+    for model, geom in geoms.items():
+        G = geom["group_width"]
+        for label, S, T, tv, vt in k1_large_cases(geom):
+            if (S, T, tv, vt, G) in checked:
+                continue
+            checked.add((S, T, tv, vt, G))
+            for dtype in (torch.bfloat16, torch.float32):
+                rec = _check_k1(label, model, S, T, tv, vt, dtype, G, LH)
+                records[("flash_encoder_attn", S, T, str(dtype).replace("torch.", ""))] = rec
+        for width in (G, len(K2_WIN)):
+            for dtype in (torch.bfloat16, torch.float32):
+                shape = (geom["n_text_layer"], width, LH, DH, geom["pool_t"])
+                key = ("xkv_splice", shape[0], width, str(dtype).replace("torch.", ""))
+                if key not in records:
+                    records[key] = _check_k2(shape, K2_WIN[:width], dtype)
+    unchecked = set(launched) - {(S, T) for S, T, _, _, _ in checked}
     if unchecked:
-        raise AssertionError(f"the large run launched K1 at unchecked shapes {sorted(unchecked)}")
-    pool = (geom["n_text_layer"], None, LH, DH, geom["pool_t"])
-    for width in (G, len(K2_WIN)):
-        for dtype in (torch.bfloat16, torch.float32):
-            shape = (pool[0], width, *pool[2:])
-            records[("xkv_splice", width, str(dtype).replace("torch.", ""))] = _check_k2(
-                shape, K2_WIN[:width], dtype)
+        raise AssertionError(f"the large-form runs launched K1 at unchecked shapes {sorted(unchecked)}")
     return records
 
 
@@ -694,7 +713,13 @@ def speech_pcm(seconds: float, seed: int) -> np.ndarray:
 N_SESSIONS = 4       # AudioProcessor sessions in process, plus one over WS /asr
 SESSION_SECONDS = 12.0
 CHUNK_S = 0.5
-PACE = 10.0          # audio fed at 10x real time
+# audio fed in real time, as a live stream gives it: a tick sees well under
+# a second of new audio. At 10x each tick saw ~3 s, so a session decoded in
+# a handful of ticks, and with random weights some committed nothing before
+# the final flush; under language="auto" a session whose detection fell
+# into the final flush kept no words (its flush batch starts with words
+# from before the detection, and is held back whole)
+PACE = 1.0
 
 
 async def _feed_processor(processor, pcm: np.ndarray, pace: float = PACE, delay: float = 0.0) -> list:
@@ -805,7 +830,7 @@ def phase_main() -> int:
     words = [sum(len(t.split()) for t, _ in lines) for lines in run["texts"]]
     shapes = {f"{s}x{t}": n for (s, t), n in sorted(run["shapes"].items())}
     log("main", model="random:base bf16", sessions=len(words),
-        audio_s_each=SESSION_SECONDS, words_per_session=words,
+        audio_s_each=SESSION_SECONDS, pace=PACE, words_per_session=words,
         wall_s=round(run["wall"], 3), setup_s=round(run["setup_s"], 3),
         ticks=stats["n_ticks"], avg_lanes=stats["avg_lanes_per_tick"],
         tick_ms_p50=stats["tick_ms_p50"], tick_ms_p95=stats["tick_ms_p95"],
@@ -888,10 +913,10 @@ def phase_reference_front() -> None:
 
 FRONT_SESSIONS = 4     # AudioProcessor sessions in process, plus one over WS /asr
 FRONT_SECONDS = 16.0
-# wall seconds (audio runs at 10x): sessions join one by one, each with a
-# full-window anchor. The window does not evict: a session detects its
-# language once its window reaches 2 s past its first timestamp, which is
-# not moved by eviction, as in the JAX package
+# wall seconds (audio runs in real time): sessions join one by one, each
+# with a full-window anchor. The window does not evict: a session detects
+# its language once its window reaches 2 s past its first timestamp, which
+# is not moved by eviction, as in the JAX package
 FRONT_DELAYS = (0.0, 0.3, 0.6, 0.9)
 FRONT_WS_DELAY = 0.15
 
@@ -931,11 +956,13 @@ async def _main_path_front() -> dict:
             wall = time.perf_counter() - t1
             counts = _kernel_counts()
         langs, line_langs = _session_languages(ins, procs, texts)
+        first_ts = [ins.first_ts.get(id(s)) for s in _server_sessions(ins, procs)]
         stats = engine.scheduler.stats()
     finally:
         await runner.cleanup()
         TranscriptionEngine.reset()
-    return dict(texts=texts, langs=langs, line_langs=line_langs, wall=wall, setup_s=setup_s, counts=counts,
+    return dict(texts=texts, langs=langs, line_langs=line_langs, first_ts=first_ts, wall=wall, setup_s=setup_s,
+                counts=counts,
                 stats=stats, calls=ins.calls, phase_ms=ins.phase_ms, detect_ms=ins.detect_ms)
 
 
@@ -951,7 +978,7 @@ def phase_front() -> dict:
     stats, counts = run["stats"], run["counts"]
     words = [sum(len(t.split()) for t, _ in lines) for lines in run["texts"]]
     log("front", model="random:base bf16, mel_pallas, language auto", sessions=len(words),
-        audio_s_each=FRONT_SECONDS, words_per_session=words,
+        audio_s_each=FRONT_SECONDS, pace=PACE, words_per_session=words,
         wall_s=round(run["wall"], 3), setup_s=round(run["setup_s"], 3),
         ticks=stats["n_ticks"], avg_lanes=stats["avg_lanes_per_tick"],
         tick_ms_p50=stats["tick_ms_p50"], tick_ms_p95=stats["tick_ms_p95"],
@@ -1047,7 +1074,10 @@ def phase_reference_large(tok_for) -> None:
 
 LARGE_SESSIONS = 5       # AudioProcessor sessions in process, plus one over WS /asr
 LARGE_SECONDS = 20.0
-LARGE_PACE = 2.0         # slow enough that windows evict and epochs pass
+# real time, as PACE: at 2x a late joiner's first two-token tick could come
+# only once its 8 s window had passed 6 s, and then never reach the 2 s
+# past its first timestamp that language detection waits for
+LARGE_PACE = 1.0
 LARGE_DELAYS = (0.0, 0.0, 0.0, 0.0, 3.0)  # the fifth joins late: a chunked anchor
 LARGE_WS_DELAY = 6.0
 LARGE_PROGRAMS = ("alignatt_tick_anchor_group", "alignatt_tick_anchor_pooled",
@@ -1081,6 +1111,8 @@ class Instrumented:
         self.calls = dict.fromkeys(programs, 0)
         self.peaks, self.phase_ms, self.detect_ms = [], {}, []
         self.sessions = {}  # id -> every AlignAttSession that prepared a tick, in order
+        # id -> (first timestamp s, window s) at the first tick that saw it set
+        self.first_ts = {}
 
     def _wrap(self, name, real):
         def wrapped(*a, **k):
@@ -1116,6 +1148,8 @@ class Instrumented:
 
         def timed_detect(sess, audio):
             self.sessions.setdefault(id(sess), sess)
+            if sess.first_timestamp is not None and id(sess) not in self.first_ts:
+                self.first_ts[id(sess)] = (round(sess.first_timestamp, 2), round(sess.segments_len(), 2))
             before, t = sess.detected_language, time.perf_counter()
             self.real_detect(sess, audio)
             if before is None and sess.detected_language is not None:
@@ -1159,6 +1193,18 @@ def _check_k1_bodies(phase: str, counts: dict) -> None:
         raise AssertionError(f"{phase}: K1 launches off the wgmma bodies: {bodies} of {launches}")
 
 
+def _large_geom(engine) -> dict:
+    """The large form's kernel geometry on a built engine: what K1's and
+    K2's checks need to cover every shape its ticks give them."""
+    from whisperlivekit_tpu_torch.streaming import alignatt as A
+
+    eng, xkv = engine.scheduler.engine, engine.scheduler.xkv
+    return dict(n_audio_ctx=eng.dims.n_audio_ctx, n_text_layer=eng.dims.n_text_layer,
+                pool_t=xkv.groups[0].k.shape[-1], tail_frames=eng.cfg.enc_tail_frames,
+                prefix_buckets=eng.prefix_buckets, group_width=xkv.group_width,
+                refresh_rows=(A.SKV_REFRESH_ROWS, A._skv_full_refresh_rows(eng, xkv.skv_width)))
+
+
 async def _main_path_large() -> dict:
     from aiohttp import web
 
@@ -1199,17 +1245,14 @@ async def _main_path_large() -> dict:
             wall = time.perf_counter() - t1
             counts = _kernel_counts()
         langs, line_langs = _session_languages(ins, procs, texts)
+        first_ts = [ins.first_ts.get(id(s)) for s in _server_sessions(ins, procs)]
         stats = engine.scheduler.stats()
         phases = dict(A.TICK_PHASE_STATS)
-        eng, xkv = engine.scheduler.engine, engine.scheduler.xkv
-        geom = dict(n_audio_ctx=eng.dims.n_audio_ctx, n_text_layer=eng.dims.n_text_layer,
-                    pool_t=xkv.groups[0].k.shape[-1], tail_frames=eng.cfg.enc_tail_frames,
-                    prefix_buckets=eng.prefix_buckets, group_width=xkv.group_width,
-                    refresh_rows=(A.SKV_REFRESH_ROWS, A._skv_full_refresh_rows(eng, xkv.skv_width)))
+        geom = _large_geom(engine)
     finally:
         await runner.cleanup()
         TranscriptionEngine.reset()
-    return dict(texts=texts, langs=langs, line_langs=line_langs, wall=wall, init_s=init_s,
+    return dict(texts=texts, langs=langs, line_langs=line_langs, first_ts=first_ts, wall=wall, init_s=init_s,
                 setup_s=setup_s, counts=counts,
                 stats=stats, phases=phases, calls=ins.calls, peaks=ins.peaks,
                 phase_ms=ins.phase_ms, detect_ms=ins.detect_ms, geom=geom)
@@ -1228,15 +1271,19 @@ def _check_front_kernels(phase: str, run: dict) -> None:
         raise AssertionError(f"{phase}: K3 launches off the bulk route: {routes} of {k3}")
 
 
-def _session_languages(ins: Instrumented, procs: list, texts: list) -> tuple:
-    """Each session's detected language, read from its server-side session
-    (the in-process ones, then the one behind ``WS /asr``), and the
-    languages its transcript lines carry. A line carries one only when it
-    holds words committed after the detection, so the lines alone cannot
-    say whether a session detected."""
+def _server_sessions(ins: Instrumented, procs: list) -> list:
+    """The server-side session of each stream: the in-process ones, then
+    the one behind ``WS /asr``."""
     own = [p.transcription.model for p in procs]
-    ws = [s for s in ins.sessions.values() if all(s is not o for o in own)]
-    langs = [s.detected_language for s in own + ws]
+    return own + [s for s in ins.sessions.values() if all(s is not o for o in own)]
+
+
+def _session_languages(ins: Instrumented, procs: list, texts: list) -> tuple:
+    """Each session's detected language, read from its server-side session,
+    and the languages its transcript lines carry. A line carries one only
+    when it holds words committed after the detection, so the lines alone
+    cannot say whether a session detected."""
+    langs = [s.detected_language for s in _server_sessions(ins, procs)]
     on_lines = [sorted({lang for _, lang in lines if lang}) for lines in texts]
     return langs, on_lines
 
@@ -1244,7 +1291,8 @@ def _session_languages(ins: Instrumented, procs: list, texts: list) -> tuple:
 def _check_languages(phase: str, run: dict) -> None:
     ms, langs, on_lines = run["detect_ms"], run["langs"], run["line_langs"]
     log(phase, detected_languages=langs, line_languages=on_lines, detections=len(ms),
-        detect_ms_p50=_quantile(ms, 0.5), detect_ms_max=_quantile(ms, 1.0))
+        detect_ms_p50=_quantile(ms, 0.5), detect_ms_max=_quantile(ms, 1.0),
+        first_ts_and_window_s=run.get("first_ts"))
     if len(langs) != len(on_lines) or not all(langs):
         raise AssertionError(f"a session never detected its language: {langs} over {len(on_lines)} sessions")
     if any(seen not in ([], [lang]) for lang, seen in zip(langs, on_lines)):
@@ -1304,6 +1352,333 @@ def phase_large() -> dict:
     return run
 
 
+LOAD_MODEL = "large-v3-turbo"  # 1280 wide: the large form, with a 4-layer decoder
+LOAD_SECONDS = 10.0            # the audio of each endpoint's request or session
+LOAD_PACE = 2.0                # the two WS sessions' audio, fed at 2x real time
+LOAD_QUIET_S = 5.0             # a /v1/listen client closes after this long without a result
+
+
+def _checkpoint_tensors(dims) -> list:
+    """(name, shape, scale) of every tensor of an OpenAI Whisper checkpoint,
+    under its canonical keys: dense weights [out, in] at d_in ** -0.5, conv
+    weights at (3 C_in) ** -0.5, biases at 0.02, no key bias; scale None is
+    a LayerNorm weight (1 + 0.02 noise)."""
+    def block(prefix, d, cross):
+        rows = []
+        for ln in ("attn_ln", "mlp_ln") + (("cross_attn_ln",) if cross else ()):
+            rows += [(f"{prefix}.{ln}.weight", (d,), None), (f"{prefix}.{ln}.bias", (d,), 0.02)]
+        for att in ("attn",) + (("cross_attn",) if cross else ()):
+            for proj in ("query", "key", "value", "out"):
+                rows.append((f"{prefix}.{att}.{proj}.weight", (d, d), d ** -0.5))
+                if proj != "key":
+                    rows.append((f"{prefix}.{att}.{proj}.bias", (d,), 0.02))
+        return rows + [(f"{prefix}.mlp.0.weight", (4 * d, d), d ** -0.5), (f"{prefix}.mlp.0.bias", (4 * d,), 0.02),
+                       (f"{prefix}.mlp.2.weight", (d, 4 * d), (4 * d) ** -0.5), (f"{prefix}.mlp.2.bias", (d,), 0.02)]
+
+    d, dt = dims.n_audio_state, dims.n_text_state
+    rows = [("encoder.conv1.weight", (d, dims.n_mels, 3), (3 * dims.n_mels) ** -0.5),
+            ("encoder.conv1.bias", (d,), 0.02), ("encoder.conv2.weight", (d, d, 3), (3 * d) ** -0.5),
+            ("encoder.conv2.bias", (d,), 0.02), ("encoder.positional_embedding", (dims.n_audio_ctx, d), 1.0)]
+    for i in range(dims.n_audio_layer):
+        rows += block(f"encoder.blocks.{i}", d, cross=False)
+    rows += [("encoder.ln_post.weight", (d,), None), ("encoder.ln_post.bias", (d,), 0.02),
+             ("decoder.token_embedding.weight", (dims.n_vocab, dt), 0.02),
+             ("decoder.positional_embedding", (dims.n_text_ctx, dt), 0.01)]
+    for i in range(dims.n_text_layer):
+        rows += block(f"decoder.blocks.{i}", dt, cross=True)
+    return rows + [("decoder.ln.weight", (dt,), None), ("decoder.ln.bias", (dt,), 0.02)]
+
+
+def write_checkpoint(path, dims, seed: int) -> int:
+    """An OpenAI ``.pt`` as published checkpoints are stored, ``{"dims",
+    "model_state_dict"}`` with f16 tensors under canonical keys, the values
+    drawn on the card from a seeded ``torch.Generator``. Returns its bytes."""
+    import dataclasses
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sd = {}
+    for name, shape, scale in _checkpoint_tensors(dims):
+        x = torch.randn(shape, generator=g, device="cuda")
+        sd[name] = (1 + 0.02 * x if scale is None else scale * x).half().cpu()
+    torch.save({"dims": dataclasses.asdict(dims), "model_state_dict": sd}, path)
+    return path.stat().st_size
+
+
+class RssPeak:
+    """This process's resident memory over a block: before, and the peak,
+    sampled every millisecond from /proc/self/statm."""
+
+    def __enter__(self):
+        import os
+        import threading
+
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.before = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def _sample(self) -> None:
+        while not self._stop.wait(0.001):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+
+def _wav_bytes(pcm: np.ndarray) -> bytes:
+    import io
+    import wave
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.tobytes())
+    return buf.getvalue()
+
+
+async def _post_transcription(http, url: str, wav: bytes, fmt: str) -> tuple:
+    """One ``POST /v1/audio/transcriptions``: (status, body, wall seconds)."""
+    import aiohttp
+
+    form = aiohttp.FormData()
+    form.add_field("file", wav, filename="speech.wav", content_type="audio/wav")
+    form.add_field("response_format", fmt)
+    form.add_field("language", "en")
+    t = time.perf_counter()
+    async with http.post(url, data=form) as r:
+        return r.status, await r.text(), time.perf_counter() - t
+
+
+async def _listen(url: str, pcm: np.ndarray, pace: float) -> dict:
+    """One ``WS /v1/listen`` session as a Deepgram client runs it: audio at
+    ``pace``, ``Finalize``, results until LOAD_QUIET_S pass without one,
+    ``CloseStream``. Returns the messages, the close and the wall time."""
+    import aiohttp
+
+    t = time.perf_counter()
+    async with aiohttp.ClientSession() as http:
+        async with http.ws_connect(url) as ws:
+            msgs = []
+
+            async def receive():
+                while True:
+                    msg = await ws.receive(timeout=300)
+                    if msg.type != aiohttp.WSMsgType.TEXT:
+                        return msg.type.name
+                    msgs.append(json.loads(msg.data))
+            task = asyncio.create_task(receive())
+            step = int(16000 * CHUNK_S)
+            for i in range(0, len(pcm), step):
+                await ws.send_bytes(pcm[i : i + step].tobytes())
+                await asyncio.sleep(CHUNK_S / pace)
+            await ws.send_str(json.dumps({"type": "Finalize"}))
+            seen = -1
+            while seen != len(msgs) and not task.done():
+                seen = len(msgs)
+                await asyncio.sleep(LOAD_QUIET_S)
+            await ws.send_str(json.dumps({"type": "CloseStream"}))
+            closed = await asyncio.wait_for(task, timeout=60)
+    finals = [m["channel"]["alternatives"][0]["transcript"] for m in msgs
+              if m.get("type") == "Results" and m["is_final"]]
+    return dict(msgs=msgs, closed=closed, text=" ".join(finals), wall=time.perf_counter() - t)
+
+
+async def _main_path_load(path) -> dict:
+    """The checkpoint served through ``create_app`` on localhost: REST posts
+    (json and the same json again, at once; then verbose_json), then a ``WS
+    /v1/listen`` and a ``WS /asr`` session at once. The two json posts run
+    together: a lane group's anchor epoch (every 15 group ticks at a 30 s
+    window) re-anchors its sessions mid-request, so a post's text depends on
+    where the group's epoch stands when it runs; two posts that share every
+    tick see the same epochs. Each post's starting (epoch, ticks) is
+    logged."""
+    import aiohttp
+    from aiohttp import web
+
+    from whisperlivekit_tpu_torch.engine.core import TranscriptionEngine, WLKConfig
+    from whisperlivekit_tpu_torch.server.app import create_app
+    from whisperlivekit_tpu_torch.streaming import alignatt as A
+
+    config = WLKConfig(model_path=str(path), lan="en", pcm_input=True, vac=False, param_dtype="bfloat16",
+                       log_level="WARNING", max_batch_sessions=LG)
+    t0 = time.perf_counter()
+    engine = TranscriptionEngine(config)
+    engine.asr.cfg.mel_pallas = True  # an AlignAttConfig field: WLKConfig has no flag for it
+    init_s = time.perf_counter() - t0
+    if engine.device.type != "cuda":
+        raise AssertionError(f"engine landed on {engine.device}, not the card")
+    runner = web.AppRunner(create_app(config, engine=engine))
+    await runner.setup()  # startup runs the engine's warmup tick
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    host, port = runner.addresses[0][:2]
+    base = f"http://{host}:{port}"
+    try:
+        with Instrumented(FULL_WINDOW) as ins:
+            _reset_kernel_counts()  # the load path's run counts from here
+            engine.scheduler.reset_stats()
+            wav = _wav_bytes(speech_pcm(LOAD_SECONDS, seed=70))
+            groups = engine.scheduler.xkv.groups
+            url = f"{base}/v1/audio/transcriptions"
+            async with aiohttp.ClientSession() as http:
+                epoch = [(g.sub_epoch, g.ticks_since_epoch) for g in groups]
+                rest = [(*r, epoch) for r in await asyncio.gather(
+                    _post_transcription(http, url, wav, "json"), _post_transcription(http, url, wav, "json"))]
+                epoch = [(g.sub_epoch, g.ticks_since_epoch) for g in groups]
+                rest.append((*await _post_transcription(http, url, wav, "verbose_json"), epoch))
+            t = time.perf_counter()
+            listen, asr = await asyncio.gather(
+                _listen(f"{base}/v1/listen?language=en", speech_pcm(LOAD_SECONDS, seed=71), LOAD_PACE),
+                _feed_websocket(f"{base}/asr", speech_pcm(LOAD_SECONDS, seed=72), LOAD_PACE))
+            ws_wall = time.perf_counter() - t
+            torch.cuda.synchronize()
+            counts = _kernel_counts()
+        stats = engine.scheduler.stats()
+        phases = dict(A.TICK_PHASE_STATS)
+        geom = _large_geom(engine)
+    finally:
+        await runner.cleanup()
+        TranscriptionEngine.reset()
+    return dict(rest=rest, listen=listen, asr=asr, ws_wall=ws_wall, init_s=init_s, counts=counts,
+                stats=stats, phases=phases, calls=ins.calls, geom=geom)
+
+
+def phase_load(card: str) -> dict:
+    """A large-v3-turbo checkpoint at full width, written as an OpenAI .pt
+    (f16, random from a seed; deleted at the end), loaded onto the card and
+    held bit for bit to the same file loaded on the CPU, then served: REST
+    json, verbose_json and json again, ``WS /v1/listen`` with ``WS /asr``,
+    and the CLI's ``transcribe`` (TestHarness) in this process."""
+    import contextlib
+    import gc
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from whisperlivekit_tpu_torch import cli
+    from whisperlivekit_tpu_torch.engine.core import MODEL_DIMS
+    from whisperlivekit_tpu_torch.harness import harness
+    from whisperlivekit_tpu_torch.harness.vocab import install_standin_vocab
+    from whisperlivekit_tpu_torch.models.whisper.load import load_model
+    from whisperlivekit_tpu_torch.streaming import alignatt as A
+
+    dims = MODEL_DIMS[LOAD_MODEL]
+    with tempfile.TemporaryDirectory(prefix="wlk_ckpt_") as ckpt_dir, \
+            tempfile.TemporaryDirectory(prefix="wlk_vocab_") as vocab_dir:
+        install_standin_vocab(vocab_dir)
+        path = Path(ckpt_dir) / f"{LOAD_MODEL}.pt"
+        t = time.perf_counter()
+        nbytes = write_checkpoint(path, dims, seed=5)
+        write_s = time.perf_counter() - t
+
+        gc.collect()  # the earlier phases' engines sit in reference cycles until a collection
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        card_before = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        with RssPeak() as rss:
+            model, ldims, name = load_model(str(path), dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        card_peak = torch.cuda.max_memory_allocated()
+        t = time.perf_counter()
+        ref, _, _ = load_model(str(path), dtype=torch.bfloat16, device="cpu")
+        cpu_load_s = time.perf_counter() - t
+        want = dict(ref.named_parameters())
+        got = dict(model.named_parameters())
+        unequal = [n for n, p in got.items()
+                   if p.device.type != "cuda" or p.dtype != torch.bfloat16
+                   or not torch.equal(p.detach().cpu().view(torch.int16), want[n].view(torch.int16))]
+        log("load", card=repr(card), checkpoint=f"{LOAD_MODEL} OpenAI .pt, f16", bytes=nbytes,
+            write_s=round(write_s, 3), size_name=name, params=sum(p.numel() for p in want.values()),
+            load_s=round(load_s, 3), cpu_load_s=round(cpu_load_s, 3),
+            host_rss_before_GiB=round(rss.before / 2**30, 3), host_rss_peak_GiB=round(rss.peak / 2**30, 3),
+            card_alloc_before_GiB=round(card_before / 2**30, 3), card_peak_alloc_GiB=round(card_peak / 2**30, 3),
+            bit_equal_to_cpu=not unequal and sorted(got) == sorted(want))
+        if unequal or sorted(got) != sorted(want) or ldims != dims:
+            raise AssertionError(f"the card's load differs from the CPU's: {unequal[:5]} {ldims}")
+        del model, ref, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        run = asyncio.run(_main_path_load(path))
+        server_counts = run["counts"]
+        # the CLI's transcribe (TestHarness, the card), in this process
+        wav_path = Path(ckpt_dir) / "speech.wav"
+        wav_path.write_bytes(_wav_bytes(speech_pcm(LOAD_SECONDS, seed=73)))
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["transcribe", str(wav_path), "--model-path", str(path), "--lan", "en", "--no-vac",
+                           "--max-batch-sessions", str(LG)])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t
+        counts = _kernel_counts()  # the whole load path: the server's endpoints and the CLI's
+        cli_stats = [e.scheduler.stats() for e in harness._engine_cache.values()]
+        recovered = "pool_recovery" in A.TICK_PHASE_STATS
+        harness.reset_engine_cache()
+    run.update(counts=counts, server_counts=server_counts, cli_rc=rc, cli_text=out.getvalue().strip(),
+               cli_s=cli_s, cli_stats=cli_stats)
+
+    stats = run["stats"]
+    (s1, b1, t1, e1), (s2, b2, t2, e2), (s3, b3, t3, e3) = run["rest"]
+    texts = [json.loads(b)["text"] if s == 200 else None for s, b in ((s1, b1), (s2, b2), (s3, b3))]
+    verbose = json.loads(b3) if s3 == 200 else {}
+    listen, asr = run["listen"], run["asr"]
+    words = lambda text: len(text.split())  # noqa: E731
+    log("load", model=f"{LOAD_MODEL} checkpoint bf16, mel_pallas", engine_init_s=round(run["init_s"], 3),
+        audio_s_each=LOAD_SECONDS, ticks=stats["n_ticks"], avg_lanes=stats["avg_lanes_per_tick"],
+        tick_ms_p50=stats["tick_ms_p50"], tick_ms_p95=stats["tick_ms_p95"],
+        failed_ticks=stats["n_failed_ticks"], cli_ticks=[s["n_ticks"] for s in cli_stats],
+        cli_failed_ticks=[s["n_failed_ticks"] for s in cli_stats])
+    for label, status, secs, epoch, text in (("rest json", s1, t1, e1, texts[0]),
+                                             ("rest json again", s2, t2, e2, texts[1]),
+                                             ("rest verbose_json", s3, t3, e3, texts[2])):
+        log("load", endpoint=repr(label), status=status, wall_s=round(secs, 3), group_epoch_ticks=epoch,
+            words=words(text or ""), text=repr((text or "")[:160]))
+    log("load", endpoint="'ws /v1/listen'", close=listen["closed"], wall_s=round(listen["wall"], 3),
+        messages=dict(Counter(m.get("type") for m in listen["msgs"])), words=words(listen["text"]),
+        text=repr(listen["text"][:160]))
+    asr_text = " ".join(t for t, _ in asr)
+    log("load", endpoint="'ws /asr'", wall_s=round(run["ws_wall"], 3), words=words(asr_text),
+        text=repr(asr_text[:160]))
+    log("load", endpoint="'cli transcribe'", rc=run["cli_rc"], wall_s=round(run["cli_s"], 3),
+        words=words(run["cli_text"]), text=repr(run["cli_text"][:160]))
+    log("load", programs=run["calls"], verbose_json_segments=len(verbose.get("segments", [])),
+        verbose_json_duration=verbose.get("duration"))
+    counts = run["counts"]
+    log("load", kernel="flash_encoder_attn", launches=counts["flash_encoder_attn"],
+        launches_by_SxT={f"{s}x{t}": n for (s, t), n in sorted(counts["k1_shapes"].items())})
+    log("load", kernel="xkv_splice", launches=counts["xkv_splice"])
+    _check_k1_bodies("load", counts)
+    if [s1, s2, s3] != [200] * 3 or texts[0] != texts[1]:
+        raise AssertionError(f"REST: statuses {[s1, s2, s3]}, the two json posts {texts[0]!r} / {texts[1]!r}")
+    if listen["closed"] != "CLOSE" or not listen["msgs"] or listen["msgs"][0].get("type") != "Metadata":
+        raise AssertionError(f"/v1/listen: {listen['closed']} after {[m.get('type') for m in listen['msgs']][:5]}")
+    if run["cli_rc"] != 0:
+        raise AssertionError(f"the CLI's transcribe returned {run['cli_rc']}")
+    if stats["n_failed_ticks"] or any(s["n_failed_ticks"] for s in cli_stats):
+        raise AssertionError(f"ticks failed: {stats['n_failed_ticks']}, CLI {cli_stats}")
+    if "pool_recovery" in run["phases"] or recovered:
+        raise AssertionError("a lane group recovered")
+    _check_front_kernels("load", dict(calls=run["calls"], counts=server_counts))
+    if not counts["xkv_splice"] or not counts["k1_shapes"].get((1500, 1500)):
+        raise AssertionError(f"K2 or K1's full window never launched: {counts}")
+    log("load", geometry=run["geom"])
+    return run
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--k3-ab", metavar="LOG_MEL_CU", default=None,
@@ -1316,14 +1691,26 @@ def main(argv=None) -> int:
         return 0
     watch = LogWatch()
     logging.getLogger().addHandler(watch)
-    card = phase_device()
-    records = phase_kernels()
-    base_launches = phase_main()
-    front = phase_front()
-    large = phase_large()
-    large_records = phase_kernels_large(large["geom"], large["counts"]["k1_shapes"])
-    k3_launched = Counter(front["counts"]["k3_shapes"]) + Counter(large["counts"]["k3_shapes"])
-    k3_records = phase_kernels_k3(k3_launched)
+    t0 = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log("time", step=name, s=round(time.perf_counter() - t, 1), total_s=round(time.perf_counter() - t0, 1))
+        return out
+
+    card = timed("device", phase_device)
+    records = timed("kernels", phase_kernels)
+    base_launches = timed("main", phase_main)
+    front = timed("front", phase_front)
+    large = timed("large", phase_large)
+    load = timed("load", phase_load, card)
+    large_records = timed("kernels_large", phase_kernels_large,
+                          {"large-v3": large["geom"], LOAD_MODEL: load["geom"]},
+                          Counter(large["counts"]["k1_shapes"]) + Counter(load["counts"]["k1_shapes"]))
+    k3_launched = (Counter(front["counts"]["k3_shapes"]) + Counter(large["counts"]["k3_shapes"])
+                   + Counter(load["counts"]["k3_shapes"]))
+    k3_records = timed("kernels_k3", phase_kernels_k3, k3_launched)
     # K3's share of the front phase's anchor tick, at its most launched lane count
     b_front = max(front["counts"]["k3_shapes"].items(), key=lambda kv: kv[1])[0]
     anchor_p50 = _quantile(front["phase_ms"].get("anchor", []), 0.5)
@@ -1342,15 +1729,17 @@ def main(argv=None) -> int:
                 if key[0] == "flash_encoder_attn" and key[3] == "bfloat16"]
     k1 = large_records[("flash_encoder_attn", 1500, 1500, "bfloat16")]
     G = large["geom"]["group_width"]
-    k2 = large_records[("xkv_splice", G, "bfloat16")]
+    k2 = large_records[("xkv_splice", large["geom"]["n_text_layer"], G, "bfloat16")]
     k3 = k3_records[(8, 480000, 80)]
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     launches = {"flash_encoder_attn": {"base": base_launches,
                                        "front": front["counts"]["flash_encoder_attn"],
-                                       "large": large["counts"]["flash_encoder_attn"]},
-                "xkv_splice": {"large": large["counts"]["xkv_splice"]},
+                                       "large": large["counts"]["flash_encoder_attn"],
+                                       "load": load["counts"]["flash_encoder_attn"]},
+                "xkv_splice": {"large": large["counts"]["xkv_splice"], "load": load["counts"]["xkv_splice"]},
                 "log_mel_pallas": {"front": front["counts"]["log_mel_pallas"],
-                                   "large": large["counts"]["log_mel_pallas"]}}
+                                   "large": large["counts"]["log_mel_pallas"],
+                                   "load": load["counts"]["log_mel_pallas"]}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0][0], "replaces": KERNELS[name][1],
          "launches": sum(launches[name].values()), "launches_by_path": launches[name],

@@ -1,5 +1,6 @@
 """The port's own copies of the JAX package's host-only modules (config,
-CLI, tokenizer, session plane, VAD, web page, native PCM runtime) against
+CLI, tokenizer, session plane, VAD, web page, native PCM runtime, audio IO,
+WER and normalizers, the Deepgram adapter, the WS test client) against
 the modules they were copied from: the same public names, and one sample of
 behaviour each that agrees on the same inputs."""
 
@@ -18,7 +19,8 @@ MODULES = (
     "models.whisper.dims", "models.whisper.languages", "models.whisper.tokenizer",
     "audio.ffmpeg", "audio.vad",
     "session.alignment", "session.metrics", "session.diff",
-    "server.web", "native",
+    "server.web", "native", "audio.io", "harness.wer", "harness.normalizers",
+    "server.deepgram_compat", "test_client",
 )
 
 
@@ -120,7 +122,47 @@ def _native(m):
     return m.s16le_to_f32(pcm.tobytes()).tolist(), m.f32_to_s16le(np.linspace(-1, 1, 101, dtype=np.float32))
 
 
+def _io(m):
+    import tempfile
+    from pathlib import Path
+
+    rng = np.random.default_rng(2)
+    audio = (0.5 * rng.standard_normal(4000)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as d:
+        m.save_wav(Path(d) / "a.wav", audio, sr=8000)
+        back = m.load_wav(Path(d) / "a.wav")
+    return (m.float32_to_s16le(audio), m.s16le_to_float32(m.float32_to_s16le(audio)).tolist(),
+            m.resample(audio, 8000).tolist(), back.tolist(), m.ffmpeg_available())
+
+
+def _wer(m):
+    return [m.compute_wer("the cat sat on the mat", "the cat sat on mat"), m.normalize_text(" Hé, THERE! ")]
+
+
+def _normalizers(m):
+    return [n(s) for n in (m.EnglishTextNormalizer(), m.BasicTextNormalizer(remove_diacritics=True))
+            for s in ("Mr Brown paid $20.50 for twenty-one apples", "it's Ünïcode (um) [noise]")]
+
+
+def _deepgram(m):
+    lines = [{"speaker": 1, "text": "hello brave new world", "start": "0:00:01.00", "end": "0:00:03.00"},
+             {"speaker": -2, "text": "", "start": "0:00:03.00", "end": "0:00:09.00"}]
+    result = m._lines_to_result(lines, is_final=True, speech_final=True)
+    return result, m._line_to_words(lines[0]), m._parse_time_str("1:02:03.5")
+
+
+def _test_client(m):
+    r = m.TranscriptionResult()
+    for msg in ({"type": "config"}, {"type": "snapshot", "lines": [{"text": "a"}]},
+                {"type": "diff", "n_lines": 2, "new_lines": [{"text": "b"}], "buffer_transcription": "c"},
+                {"type": "ready_to_stop"}):
+        m.reconstruct_state(r, msg)
+    return r.lines, r.text, r.finished
+
+
 SAMPLES = {
+    "audio.io": _io, "harness.wer": _wer, "harness.normalizers": _normalizers,
+    "server.deepgram_compat": _deepgram, "test_client": _test_client,
     "config": _config, "cli_args": _cli_args, "timed": _timed, "models.whisper.dims": _dims,
     "models.whisper.languages": _languages, "models.whisper.tokenizer": _tokenizer,
     "audio.ffmpeg": _ffmpeg, "audio.vad": _vad, "session.alignment": _alignment,

@@ -254,7 +254,7 @@ def test_server_health_and_asr_stream(tok):
         TranscriptionEngine.reset()
     assert health["status"] == "ok" and health["backend"] == "torch" and health["ready"]
     assert "scheduler" in health
-    assert rest_status == 501
+    assert rest_status == 400  # the REST endpoint is served: a post without a file is refused
     assert msgs[0]["type"] == "config"
     texts = [ln.get("text", "") for m in msgs for ln in m.get("lines", [])]
     assert any(t.strip() for t in texts), msgs[-3:]

@@ -4,15 +4,16 @@ factories (port of whisperlivekit_tpu/engine/core.py, SimulStreaming only).
 Thread-safe double-checked-lock singleton (its own, separate from the JAX
 package's) holding the Whisper module on its device, the VAD model and the
 batch scheduler, with ``online_factory`` creating cheap per-session
-processors. Weights: ``random:<size>`` builds the catalog dimensions with
-random weights from a seeded ``torch.Generator`` (the numbers differ from
-the JAX package's ``PRNGKey(0)`` weights; parity tests bridge JAX weights
-through ``params_from_jax_numpy`` instead).
+processors. Weights: checkpoints (OpenAI .pt, HF safetensors, LoRA, the
+port's native directory) through ``models/whisper/load.py``;
+``random:<size>`` builds the catalog dimensions with random weights from a
+seeded ``torch.Generator`` (the numbers differ from the JAX package's
+``PRNGKey(0)`` weights; parity tests bridge JAX weights through
+``params_from_jax_numpy`` or load one checkpoint in both packages).
 
-What is not ported yet raises NotImplementedError naming the module:
-checkpoint loading (``models/whisper/load.py``), the LocalAgreement,
-windowed, cloud, Qwen3 and Voxtral backends, the batched JAX VAD,
-diarization and translation.
+What is not ported yet raises NotImplementedError naming the module: the
+f8 decoder, the LocalAgreement, windowed, cloud, Qwen3 and Voxtral
+backends, the batched JAX VAD, diarization and translation.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 
 from ..config import WLKConfig
 from ..models.whisper.dims import MODEL_DIMS, ModelDimensions
+from ..models.whisper.load import load_model
 from ..models.whisper.tokenizer import get_tokenizer
 from ..models.whisper import model as wm
 
@@ -54,28 +56,26 @@ def default_device() -> torch.device:
 
 
 def load_whisper_params(config: WLKConfig, device=None):
-    """Resolve + build whisper weights per config. Returns (model, dims, name).
-    Only ``random:<size>`` is served by this port so far. ``device=None``
-    means the card (``default_device``, which raises without CUDA)."""
+    """Resolve + load whisper weights per config. Returns (model, dims, name).
+    ``device=None`` means the card (``default_device``, which raises without
+    CUDA)."""
     device = torch.device(device) if device is not None else default_device()
     dtype = _dtype_from_str(config.param_dtype)
     size = config.model_size
     path = config.model_path or config.model_dir
-    if not ((path and str(path).startswith("random")) or size.startswith("random")):
-        raise NotImplementedError(
-            "loading checkpoints needs models/whisper/load.py, not ported yet; "
-            "use model_size='random:<size>'"
-        )
-    spec = size.split(":", 1)[-1] if ":" in size else ("base" if size.startswith("random") else size)
-    if path and ":" in str(path):
-        spec = str(path).split(":", 1)[1]
-    dims = MODEL_DIMS.get(spec, MODEL_DIMS["base"])
     if getattr(config, "decoder_dtype", "bf16") == "f8":
         raise NotImplementedError("decoder_dtype='f8' (quantize_decoder_f8) is not ported yet")
-    logger.warning("Initializing RANDOM weights (%s dims, seed %d)", spec, RANDOM_WEIGHTS_SEED)
-    gen = torch.Generator().manual_seed(RANDOM_WEIGHTS_SEED)
-    model = wm.init_params(dims, gen, dtype=dtype, device=device)
-    return model, dims, spec
+
+    if (path and str(path).startswith("random")) or size.startswith("random"):
+        spec = size.split(":", 1)[-1] if ":" in size else ("base" if size.startswith("random") else size)
+        if path and ":" in str(path):
+            spec = str(path).split(":", 1)[1]
+        dims = MODEL_DIMS.get(spec, MODEL_DIMS["base"])
+        logger.warning("Initializing RANDOM weights (%s dims, seed %d)", spec, RANDOM_WEIGHTS_SEED)
+        gen = torch.Generator().manual_seed(RANDOM_WEIGHTS_SEED)
+        return wm.init_params(dims, gen, dtype=dtype, device=device), dims, spec
+    return load_model(path or size, dtype=dtype, lora_path=config.lora_path,
+                      cache_dir=config.model_cache_dir, device=device)
 
 
 class SimulStreamingASR:
@@ -212,7 +212,7 @@ class TranscriptionEngine:
         if config.target_language:
             raise NotImplementedError("translation (translation/) is not ported yet")
         if config.warmup_file:
-            raise NotImplementedError("warmup_file needs audio/io.py, which imports JAX; not ported yet")
+            self.warmup(config.warmup_file)
 
     # ---- admission ---------------------------------------------------------
 
@@ -252,6 +252,15 @@ class TranscriptionEngine:
         proc.warmup(np.zeros(16000, np.float32))
         proc.close()  # release the pooled lanes the warmup session held
         logger.info("Engine warmup complete")
+
+    def warmup(self, path: str) -> None:
+        """One real inference at startup on the file's first 5 s; raises if
+        broken (reference warmup.py:51-61 fail-loud guard)."""
+        from ..audio.io import load_audio
+
+        audio = load_audio(path)[: 16000 * 5]
+        online_factory(self.config, self.asr).warmup(audio)
+        logger.info("Warmup inference OK")
 
 
 # ---------------------------------------------------------------------------
