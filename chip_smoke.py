@@ -53,7 +53,28 @@ Phases (each prints lines; any failure raises and exits non-zero):
              that K1, K2 and K3 launched during the run, that every session
              detected a language and got words, and that no tick failed and
              no group recovered.
-6. load    — a large-v3-turbo checkpoint at full width (1280 wide, 32+4
+6. f8      — the f8 large form: the large phase's reference (4+4 layers,
+             f32) with the decoder quantized (quantize_decoder_f8) and
+             float8_e4m3fn pools, card against CPU (integer outputs equal,
+             pool bytes equal up to one f8 step where the two devices' f32
+             sums straddle a rounding boundary), then the large phase's
+             sessions on ``random:large-v3`` bf16 with decoder_dtype="f8"
+             and xkv_cache_dtype="f8". Checks as the large phase, and that
+             the pools are float8_e4m3fn at half the large phase's cross-KV
+             bytes per slot, that every decoder-block linear is f8 and that
+             every K2 launch took the f8 route; prints its tick, word
+             emission, peak memory and weight bytes beside the large
+             phase's, and what widening the f8 weights costs per step.
+7. beam    — the streaming beam tick: beams 1 (equal to the greedy tick)
+             and 4 in f32 on the card against the CPU, then ``random:base``
+             bf16 with beams=4: AudioProcessor sessions and one ``WS /asr``
+             stream, each session's ticks solo (not through the
+             BatchScheduler). Checks words on every session and that K1
+             launched; then K1 in bf16 against its plain version at every
+             (S, T) that run launched, at its batch (the encoder at one
+             lane, the prefill at 4 beams), failing on any it did not
+             check.
+8. load    — a large-v3-turbo checkpoint at full width (1280 wide, 32+4
              layers, 128 mels), written as an OpenAI .pt of f16 tensors
              drawn from a seed (about 1.6 GB, in a temporary directory,
              deleted at the end), loaded onto the card with load_model and
@@ -66,13 +87,15 @@ Phases (each prints lines; any failure raises and exits non-zero):
              Checks every answer (200s, clean closes), that the two json
              posts agree, that no tick failed and no group recovered, and
              that K1 (wgmma), K2 and K3 (bulk route) launched.
-7. kernels — the large form's kernels at the shapes its engines give them:
+9. kernels — the large form's kernels at the shapes its engines give them:
              K1 at the encoder's two shapes, every prefix bucket over the
              dense cross-KV and over the pool, and both refresh widths, and
-             at every (S, T) the large and load runs launched; K2 against
-             its plain version exactly, bf16 and f32, at each run's pool
-             depth and group width and at 24 lanes, with edge and idle
-             lanes. Then K3 at every lane count
+             at every (S, T) the large, f8 and load runs launched; K2
+             against its plain version exactly, bf16, f32 and float8_e4m3fn
+             pools (f8 from bf16 tails, and from f32 tails at the group's
+             width; the tails then hold overflow, non-finite, boundary and
+             subnormal values), at each run's pool depth and group width
+             and at 24 lanes, with edge and idle lanes. Then K3 at every lane count
              the runs launched (and 4 and 8), at 80 and 128 mels, with a
              speech-like lane, an all-zero lane and a lane silent past 5 s;
              at a ragged length (rows not 16-byte aligned) at 1, 2 and 3
@@ -83,7 +106,8 @@ Phases (each prints lines; any failure raises and exits non-zero):
 
 The front and large phases also time each language detection on the
 host's clock. The line before the last is the card's name and power limit,
-the one before it the kernels' JSON record, with each kernel's bound: the
+the one before it the kernels' JSON record (K2's with its f8 route's own
+record under "f8"), with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and the operations its function needs
 over the peak rate of their type (for K3 a real FFT of each frame, which
 the kernel computes, and as bytes the audio, the log-mel and the filters'
@@ -131,6 +155,7 @@ from whisperlivekit_tpu_torch.ops.mel_pallas import (
     log_mel_pallas,
     log_mel_pallas_plain,
 )
+from whisperlivekit_tpu_torch.ops.f8 import to_e4m3fn
 from whisperlivekit_tpu_torch.ops.xkv_merge import W_SPLICE, xkv_splice, xkv_splice_plain
 from whisperlivekit_tpu_torch.streaming.alignatt import AlignAttEngine
 
@@ -440,38 +465,63 @@ def k1_large_cases(geom: dict) -> list:
     return cases
 
 
-def _check_k2(shape, win_list, dtype) -> dict:
+# values the f8 cast must map as JAX does: past 464 and +-inf to NaN with
+# their sign, NaN, the 448/464 boundary, subnormals, -0
+K2_F8_EDGES = (447.9, 448.0, 463.9, 464.0, 464.1, 1e4, -1e4, float("inf"), float("-inf"),
+               float("nan"), -0.0, 2.0 ** -10, 3 * 2.0 ** -10, -2.0 ** -8, 1e-30)
+
+
+def _check_k2(shape, win_list, dtype, tail_dtype=None) -> dict:
     """K2 against its plain version at one pool shape, bit for bit, idle
-    lanes untouched; timed (CUDA events), logged."""
+    lanes untouched; timed (CUDA events, and the device alone from a
+    graph's replay), logged. ``dtype`` is the pools', ``tail_dtype`` the
+    tails' (default the pools'); float8 pools get tails holding the edge
+    values of the cast (K2_F8_EDGES) on 5 % of their elements."""
+    f8 = dtype == torch.float8_e4m3fn
+    tail_dtype = tail_dtype or dtype
     win = torch.tensor(win_list, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(2)
-    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)  # noqa: E731
-    pk, pv = rnd(*shape), rnd(*shape)
-    tk, tv = rnd(*shape[:-1], W_SPLICE), rnd(*shape[:-1], W_SPLICE)
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    pool = lambda: to_e4m3fn(rnd(*shape)) if f8 else rnd(*shape).to(dtype)  # noqa: E731
+    pk, pv = pool(), pool()
+
+    def tail():
+        t = rnd(*shape[:-1], W_SPLICE)
+        if f8:
+            edges = torch.tensor(K2_F8_EDGES, device="cuda")
+            pick = torch.randint(len(K2_F8_EDGES), t.shape, generator=g, device="cuda")
+            t = torch.where(torch.rand(t.shape, generator=g, device="cuda") < 0.05, edges[pick], t)
+        return t.to(tail_dtype)
+    tk, tv = tail(), tail()
     want_k, want_v = xkv_splice_plain(pk, pv, tk, tv, win)
     idle = [i for i, w in enumerate(win_list) if w == 0]
     idle_before = pk[:, idle].clone()
     xkv_splice(pk, pv, tk, tv, win)
     torch.cuda.synchronize()
-    ibits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    ibits = {torch.bfloat16: torch.int16, torch.float8_e4m3fn: torch.uint8}.get(dtype, torch.int32)
     exact = (torch.equal(pk.view(ibits), want_k.view(ibits))
              and torch.equal(pv.view(ibits), want_v.view(ibits))
              and torch.equal(pk[:, idle].view(ibits), idle_before.view(ibits)))
+    nan_bytes = int(want_k.view(torch.uint8).bitwise_and(0x7F).eq(0x7F).sum()) if f8 else None
     del want_k, want_v, idle_before
     ms = _time_ms(lambda: xkv_splice(pk, pv, tk, tv, win))
+    device_ms = _time_graph_ms(lambda: xkv_splice(pk, pv, tk, tv, win))
     plain_ms = _time_ms(lambda: xkv_splice_plain(pk, pv, tk, tv, win), iters=5)
-    # read + write, K and V, of the lanes with win > 0
-    moved = 2 * 2 * tk.numel() * tk.element_size() * (len(win_list) - len(idle)) // len(win_list)
+    # the tails of the lanes with win > 0 read once and written once into
+    # the pools, K and V
+    live = (len(win_list) - len(idle)) / len(win_list)
+    moved = int(2 * tk.numel() * (tk.element_size() + pk.element_size()) * live)
     dt = str(dtype).replace("torch.", "")
-    bound = bound_ms(0, moved)  # a copy: no arithmetic
+    bound = bound_ms(0, moved)  # a copy and a cast: no arithmetic to speak of
     log("kernels", kernel="xkv_splice", shape="x".join(map(str, shape)), dtype=dt,
-        win=list(win_list), exact=exact, ms=round(ms, 4), plain_ms=round(plain_ms, 4),
-        GB_per_s=round(moved / ms / 1e6, 1), bound_ms=round(bound["bound_ms"], 4))
-    if not exact:
-        raise AssertionError(f"xkv_splice disagrees with its plain version at {shape} ({dt})")
+        tail_dtype=str(tail_dtype).replace("torch.", ""), win=list(win_list), exact=exact,
+        **({"nan_bytes_in_k": nan_bytes} if f8 else {}), ms=round(ms, 4), device_ms=round(device_ms, 4),
+        plain_ms=round(plain_ms, 4), GB_per_s=round(moved / ms / 1e6, 1), bound_ms=round(bound["bound_ms"], 4))
+    if not exact or (f8 and not nan_bytes):
+        raise AssertionError(f"xkv_splice disagrees with its plain version at {shape} ({dt}, {tail_dtype})")
     del pk, pv, tk, tv
     torch.cuda.empty_cache()
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **bound)
+    return dict(max_abs_err=0.0, ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=None, **bound)
 
 
 def phase_kernels_large(geoms: dict, launched: dict) -> dict:
@@ -492,11 +542,18 @@ def phase_kernels_large(geoms: dict, launched: dict) -> dict:
                 rec = _check_k1(label, model, S, T, tv, vt, dtype, G, LH)
                 records[("flash_encoder_attn", S, T, str(dtype).replace("torch.", ""))] = rec
         for width in (G, len(K2_WIN)):
-            for dtype in (torch.bfloat16, torch.float32):
+            # pool dtype, tail dtype: bf16 and f32 pools; f8 pools from the
+            # serving (bf16) tails, and from f32 tails at the group's width
+            for dtype, tail_dtype in ((torch.bfloat16, None), (torch.float32, None),
+                                      (torch.float8_e4m3fn, torch.bfloat16),
+                                      (torch.float8_e4m3fn, torch.float32)):
+                if tail_dtype == torch.float32 and width != G:
+                    continue
                 shape = (geom["n_text_layer"], width, LH, DH, geom["pool_t"])
-                key = ("xkv_splice", shape[0], width, str(dtype).replace("torch.", ""))
+                key = ("xkv_splice", shape[0], width, str(dtype).replace("torch.", ""),
+                       str(tail_dtype or dtype).replace("torch.", ""))
                 if key not in records:
-                    records[key] = _check_k2(shape, K2_WIN[:width], dtype)
+                    records[key] = _check_k2(shape, K2_WIN[:width], dtype, tail_dtype)
     unchecked = set(launched) - {(S, T) for S, T, _, _, _ in checked}
     if unchecked:
         raise AssertionError(f"the large-form runs launched K1 at unchecked shapes {sorted(unchecked)}")
@@ -1005,12 +1062,33 @@ def phase_front() -> dict:
     return run
 
 
-def phase_reference_large(tok_for) -> None:
+def _f8_close(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Two float8_e4m3fn pools rounded from f32 projections summed in
+    different orders (cuBLAS on the card, the CPU's): NaN at the same
+    places, every other byte equal or one f8 step apart, and under 1e-4 of
+    them apart. Returns the number of bytes that differ."""
+    gb, wb = got.view(torch.uint8).cpu(), want.view(torch.uint8).cpu()
+    gf, wf = gb.view(torch.float8_e4m3fn).float(), wb.view(torch.float8_e4m3fn).float()
+    if not torch.equal(gf.isnan(), wf.isnan()):
+        raise AssertionError("the f8 pools hold NaN at different places")
+    fin = ~wf.isnan()
+    m = torch.maximum(gf[fin].abs(), wf[fin].abs()).clamp(min=2.0 ** -6)
+    step = torch.exp2(torch.floor(torch.log2(m)) - 3)
+    n_diff = int((gb != wb).sum())
+    if bool(((gf[fin] - wf[fin]).abs() > step).any()) or n_diff >= 1e-4 * gb.numel():
+        raise AssertionError(f"the f8 pools differ by more than one f8 step or too often ({n_diff})")
+    return n_diff
+
+
+def phase_reference_large(tok_for, f8: bool = False) -> None:
     """One whole-group anchor (the fused mel at 128 mels) then two pooled
     inc ticks, two sessions, f32, large-v3 widths with the depth cut to 4+4
     layers, on the card (K1, K2, K3) and on the CPU (plain versions) in
     lockstep: the modes and the integer outputs must be equal, no_speech_p
-    within 1e-4."""
+    within 1e-4. ``f8``: the f8 large form (the decoder quantized, float8
+    pools, K2's f8 route); the pools' bytes then agree up to one f8 step
+    where the two devices' f32 sums straddle a rounding boundary
+    (``_f8_close``)."""
     from dataclasses import replace
 
     from whisperlivekit_tpu_torch.engine.core import MODEL_DIMS
@@ -1023,9 +1101,12 @@ def phase_reference_large(tok_for) -> None:
     sides = {}
     for side, dev in (("card", CARD), ("cpu", "cpu")):
         model = wm.init_params(dims, torch.Generator().manual_seed(3), torch.float32, dev)
+        if f8:
+            wm.quantize_decoder_f8(model)
         # the large-v3 tail (the cut depth would pick another model class's)
-        eng = A.AlignAttEngine(model, dims, tok, A.AlignAttConfig(language="en", enc_tail_frames=160,
-                                                                  mel_pallas=True))
+        eng = A.AlignAttEngine(model, dims, tok, A.AlignAttConfig(
+            language="en", enc_tail_frames=160, mel_pallas=True,
+            xkv_cache_dtype="f8" if f8 else "bf16"))
         pool, enc_pool = A.AudioPool(4, device=dev), A.EncPool(5, dims, torch.float32, dev)
         xkv = A.XKVAllocator.for_engine(eng, 2, epoch_period=50)
         sessions = [A.AlignAttSession(eng) for _ in range(2)]
@@ -1035,6 +1116,7 @@ def phase_reference_large(tok_for) -> None:
     pcms = [speech_pcm(8.0, seed=40 + i).astype(np.float32) / 32768.0 for i in range(2)]
     calls = {}
     launched = {"flash_encoder_attn": 0, "xkv_splice": 0, "log_mel_pallas": 0}
+    f8_launched = 0
     for tick, (a0, a1) in enumerate(((0, 96000), (96000, 112000), (112000, 128000))):
         res = {}
         for side, (eng, pool, enc_pool, xkv, sessions) in sides.items():
@@ -1042,7 +1124,8 @@ def phase_reference_large(tok_for) -> None:
             for s, pcm in zip(sessions, pcms):
                 s.insert_audio(pcm[a0:a1])
                 tis.append(s.prepare_tick(False))
-            before = (flash_encoder_attn.launches, xkv_splice.launches, log_mel_pallas.launches)
+            before = (flash_encoder_attn.launches, xkv_splice.launches, log_mel_pallas.launches,
+                      xkv_splice.f8_launches)
             A.TICK_PHASE_STATS.clear()
             with torch.inference_mode():
                 outs = run_tick_batch(eng, tis, tok, pool=pool, enc_pool=enc_pool, xkv=xkv)
@@ -1052,24 +1135,32 @@ def phase_reference_large(tok_for) -> None:
                 launched["flash_encoder_attn"] += flash_encoder_attn.launches - before[0]
                 launched["xkv_splice"] += xkv_splice.launches - before[1]
                 launched["log_mel_pallas"] += log_mel_pallas.launches - before[2]
+                f8_launched += xkv_splice.f8_launches - before[3]
             res[side] = (tuple(t.enc_mode for t in tis), outs, sorted(A.TICK_PHASE_STATS))
         (gm, go, gp), (cm, co, cp) = res["card"], res["cpu"]
         ints = lambda o: (o.new_tokens, [int(f) for f in o.frames], o.n_keep, o.reason,  # noqa: E731
                           o.last_attend, o.fire)
         ns_err = max(abs(a.no_speech_p - b.no_speech_p) for a, b in zip(go, co))
         ok = gm == cm and gp == cp and all(ints(a) == ints(b) for a, b in zip(go, co)) and ns_err <= 1e-4
-        log("reference", model="large-v3 widths, 4+4 layers, f32 random", tick=tick, modes=gm,
-            phases=gp, gpu=[ints(o) for o in go], cpu=[ints(o) for o in co],
-            no_speech_err=ns_err, ok=ok)
+        pools = {}
+        if f8:  # the group's cross-KV pools, card against CPU
+            (gx, cx) = (sides[sd][3].groups[0] for sd in ("card", "cpu"))
+            if gx.k.dtype != torch.float8_e4m3fn or cx.k.dtype != torch.float8_e4m3fn:
+                raise AssertionError(f"the f8 form's pools are {gx.k.dtype} / {cx.k.dtype}")
+            pools = dict(pool_bytes_differing=_f8_close(gx.k, cx.k) + _f8_close(gx.v, cx.v),
+                         pool_bytes=2 * gx.k.numel())
+        log("reference", model=f"large-v3 widths, 4+4 layers, f32 random{', f8' if f8 else ''}",
+            tick=tick, modes=gm, phases=gp, gpu=[ints(o) for o in go], cpu=[ints(o) for o in co],
+            no_speech_err=ns_err, ok=ok, **pools)
         if not ok:
             raise AssertionError(f"the card's pooled tick {tick} disagrees with the CPU reference")
         calls.setdefault(gm, 0)
         calls[gm] += 1
     want = {("anchor", "anchor"): 1, ("inc", "inc"): 2}
-    if calls != want or not all(launched.values()):
+    if calls != want or not all(launched.values()) or (f8 and f8_launched != launched["xkv_splice"]):
         raise AssertionError(f"expected one whole-group anchor, two inc ticks and all three kernels: "
-                             f"{calls} {launched}")
-    log("reference", model="large-v3 widths", kernel_launches=launched, ok=True)
+                             f"{calls} {launched}, f8 splices {f8_launched}")
+    log("reference", model="large-v3 widths", f8=f8, kernel_launches=launched, ok=True)
 
 
 LARGE_SESSIONS = 5       # AudioProcessor sessions in process, plus one over WS /asr
@@ -1172,6 +1263,7 @@ def _reset_kernel_counts() -> None:
     flash_encoder_attn.bodies.clear()
     flash_encoder_attn.splits.clear()
     xkv_splice.launches = 0
+    xkv_splice.f8_launches = 0
     log_mel_pallas.launches = 0
     log_mel_pallas.shapes.clear()
     log_mel_pallas.routes.clear()
@@ -1179,6 +1271,7 @@ def _reset_kernel_counts() -> None:
 
 def _kernel_counts() -> dict:
     return dict(flash_encoder_attn=flash_encoder_attn.launches, xkv_splice=xkv_splice.launches,
+                xkv_splice_f8=xkv_splice.f8_launches,
                 log_mel_pallas=log_mel_pallas.launches, k1_shapes=dict(flash_encoder_attn.shapes),
                 k1_bodies=dict(flash_encoder_attn.bodies), k1_splits=dict(flash_encoder_attn.splits),
                 k3_shapes=dict(log_mel_pallas.shapes), k3_routes=dict(log_mel_pallas.routes))
@@ -1198,14 +1291,35 @@ def _large_geom(engine) -> dict:
     K2's checks need to cover every shape its ticks give them."""
     from whisperlivekit_tpu_torch.streaming import alignatt as A
 
+    from whisperlivekit_tpu_torch.models.whisper import model as wm
+
     eng, xkv = engine.scheduler.engine, engine.scheduler.xkv
+    k = xkv.groups[0].k
+    params = list(eng.model.parameters()) + list(eng.model.buffers())
     return dict(n_audio_ctx=eng.dims.n_audio_ctx, n_text_layer=eng.dims.n_text_layer,
-                pool_t=xkv.groups[0].k.shape[-1], tail_frames=eng.cfg.enc_tail_frames,
+                pool_t=k.shape[-1], tail_frames=eng.cfg.enc_tail_frames,
                 prefix_buckets=eng.prefix_buckets, group_width=xkv.group_width,
-                refresh_rows=(A.SKV_REFRESH_ROWS, A._skv_full_refresh_rows(eng, xkv.skv_width)))
+                refresh_rows=(A.SKV_REFRESH_ROWS, A._skv_full_refresh_rows(eng, xkv.skv_width)),
+                pool_dtype=str(k.dtype).replace("torch.", ""),
+                xkv_bytes_per_slot=2 * k[:, 0].numel() * k.element_size(),
+                weight_bytes=sum(t.numel() * t.element_size() for t in params),
+                f8_linears=sum(lin.weight.dtype == torch.float8_e4m3fn for lin in wm._f8_linears(eng.model)),
+                decoder_linears=8 * eng.dims.n_text_layer)
 
 
-async def _main_path_large() -> dict:
+def _widen_ms(model) -> tuple:
+    """What the f8 ``dense`` adds per decode step: widening every quantized
+    decoder linear to bf16 once (the products are not in it). Returns (ms
+    by CUDA events over back-to-back calls, the device alone from a graph's
+    replay)."""
+    from whisperlivekit_tpu_torch.models.whisper import model as wm
+
+    lins = [lin.weight for lin in wm._f8_linears(model)]
+    widen = lambda: [w.to(torch.bfloat16) for w in lins]  # noqa: E731
+    return _time_ms(widen, iters=5), _time_graph_ms(widen, reps=2)
+
+
+async def _main_path_large(f8: bool = False) -> dict:
     from aiohttp import web
 
     from whisperlivekit_tpu_torch.engine.core import TranscriptionEngine, WLKConfig
@@ -1214,10 +1328,12 @@ async def _main_path_large() -> dict:
     from whisperlivekit_tpu_torch.streaming import alignatt as A
 
     # one 8-wide lane group; an 8 s window evicts every 4 s, and a group
-    # epoch passes every 4 pooled inc ticks
+    # epoch passes every 4 pooled inc ticks. f8: the decoder's block linears
+    # and the cross-KV pools in float8_e4m3fn
+    f8_kw = dict(decoder_dtype="f8", xkv_cache_dtype="f8") if f8 else {}
     config = WLKConfig(model_size="random:large-v3", lan="auto", pcm_input=True, vac=False,
                        param_dtype="bfloat16", log_level="WARNING", max_batch_sessions=LG,
-                       audio_max_len=8.0)
+                       audio_max_len=8.0, **f8_kw)
     t0 = time.perf_counter()
     engine = TranscriptionEngine(config)
     engine.asr.cfg.mel_pallas = True  # an AlignAttConfig field: WLKConfig has no flag for it
@@ -1234,6 +1350,8 @@ async def _main_path_large() -> dict:
         with Instrumented(LARGE_PROGRAMS + FULL_WINDOW[:2], peak_of="alignatt_tick_anchor_group") as ins:
             _reset_kernel_counts()
             engine.scheduler.reset_stats()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t1 = time.perf_counter()
             pcms = [speech_pcm(LARGE_SECONDS, seed=20 + s) for s in range(LARGE_SESSIONS + 1)]
             procs = [AudioProcessor(transcription_engine=engine) for _ in range(LARGE_SESSIONS)]
@@ -1244,16 +1362,18 @@ async def _main_path_large() -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t1
             counts = _kernel_counts()
+            peak = torch.cuda.max_memory_allocated()
         langs, line_langs = _session_languages(ins, procs, texts)
         first_ts = [ins.first_ts.get(id(s)) for s in _server_sessions(ins, procs)]
         stats = engine.scheduler.stats()
         phases = dict(A.TICK_PHASE_STATS)
         geom = _large_geom(engine)
+        widen_ms = _widen_ms(engine.asr.engine.model) if f8 else None
     finally:
         await runner.cleanup()
         TranscriptionEngine.reset()
     return dict(texts=texts, langs=langs, line_langs=line_langs, first_ts=first_ts, wall=wall, init_s=init_s,
-                setup_s=setup_s, counts=counts,
+                setup_s=setup_s, counts=counts, peak=peak, widen_ms=widen_ms,
                 stats=stats, phases=phases, calls=ins.calls, peaks=ins.peaks,
                 phase_ms=ins.phase_ms, detect_ms=ins.detect_ms, geom=geom)
 
@@ -1299,7 +1419,9 @@ def _check_languages(phase: str, run: dict) -> None:
         raise AssertionError(f"lines carry another language than their session's: {on_lines} vs {langs}")
 
 
-def phase_large() -> dict:
+def phase_large(f8: bool = False) -> dict:
+    """The large form (``f8``: the f8 large form, logged as phase "f8")."""
+    import gc
     import tempfile
 
     from whisperlivekit_tpu_torch.engine.core import get_tokenizer
@@ -1308,48 +1430,233 @@ def phase_large() -> dict:
     def tok_for(dims):
         return get_tokenizer(True, num_languages=dims.num_languages, language="en", task="transcribe")
 
+    phase = "f8" if f8 else "large"
     with tempfile.TemporaryDirectory(prefix="wlk_vocab_") as vocab_dir:
         install_standin_vocab(vocab_dir)
-        phase_reference_large(tok_for)
+        phase_reference_large(tok_for, f8=f8)
+        gc.collect()  # an earlier phase's engine sits in reference cycles until a collection
         torch.cuda.empty_cache()
-        run = asyncio.run(_main_path_large())
+        run = asyncio.run(_main_path_large(f8))
     stats, counts = run["stats"], run["counts"]
     words = [sum(len(t.split()) for t, _ in lines) for lines in run["texts"]]
     shapes = {f"{s}x{t}": n for (s, t), n in sorted(counts["k1_shapes"].items())}
-    log("large", model="random:large-v3 bf16", group_width=LG, sessions=len(words),
+    log(phase, model=f"random:large-v3 bf16{', f8 decoder and pools' if f8 else ''}", group_width=LG,
+        sessions=len(words),
         audio_s_each=LARGE_SECONDS, pace=LARGE_PACE, words_per_session=words,
         wall_s=round(run["wall"], 3), engine_init_s=round(run["init_s"], 3),
         setup_s=round(run["setup_s"], 3), ticks=stats["n_ticks"],
         avg_lanes=stats["avg_lanes_per_tick"], tick_ms_p50=stats["tick_ms_p50"],
         tick_ms_p95=stats["tick_ms_p95"], word_emission_p50_ms=stats["word_emission_p50_ms"],
-        word_emission_p95_ms=stats["word_emission_p95_ms"], failed_ticks=stats["n_failed_ticks"])
+        word_emission_p95_ms=stats["word_emission_p95_ms"], failed_ticks=stats["n_failed_ticks"],
+        peak_alloc_GB=round(run["peak"] / 2**30, 3), weight_GB=round(run["geom"]["weight_bytes"] / 2**30, 3))
     for key, ms in sorted(run["phase_ms"].items()):
-        log("large", tick_phase=key, n=len(ms), p50_ms=_quantile(ms, 0.5), p95_ms=_quantile(ms, 0.95),
+        log(phase, tick_phase=key, n=len(ms), p50_ms=_quantile(ms, 0.5), p95_ms=_quantile(ms, 0.95),
             mean_lanes=stats["tick_phases"].get(key, {}).get("mean_lanes"))
-    log("large", programs=run["calls"], anchor_reasons=stats["anchor_reasons"],
+    log(phase, programs=run["calls"], anchor_reasons=stats["anchor_reasons"],
         xkv=stats.get("xkv"),
         anchor_group_peak_GB=round(max(run["peaks"]) / 2**30, 3) if run["peaks"] else None)
-    log("large", kernel="flash_encoder_attn", launches=counts["flash_encoder_attn"],
+    log(phase, kernel="flash_encoder_attn", launches=counts["flash_encoder_attn"],
         launches_by_SxT=shapes, per_tick=round(counts["flash_encoder_attn"] / max(stats["n_ticks"], 1), 2))
-    _check_k1_bodies("large", counts)
-    log("large", kernel="xkv_splice", launches=counts["xkv_splice"],
+    _check_k1_bodies(phase, counts)
+    log(phase, kernel="xkv_splice", launches=counts["xkv_splice"], f8_launches=counts["xkv_splice_f8"],
         per_tick=round(counts["xkv_splice"] / max(stats["n_ticks"], 1), 2))
     if stats["n_failed_ticks"]:
         raise AssertionError(f"{stats['n_failed_ticks']} batch ticks failed")
     if "pool_recovery" in run["phases"]:
         raise AssertionError(f"a lane group recovered: {run['phases']['pool_recovery']}")
-    _check_languages("large", run)
+    _check_languages(phase, run)
     if not all(words):
         raise AssertionError(f"a session got no words: {words}")
     if not all(run["calls"][name] for name in LARGE_PROGRAMS):
         raise AssertionError(f"a pooled program never ran: {run['calls']}")
     if not all(counts[k] for k in ("flash_encoder_attn", "xkv_splice", "log_mel_pallas")):
         raise AssertionError(f"a kernel never launched: {counts}")
-    _check_front_kernels("large", run)
+    _check_front_kernels(phase, run)
     if not (counts["k1_shapes"].get((1500, 1500)) and counts["k1_shapes"].get((160, 160))):
         raise AssertionError(f"K1 did not launch at the encoder's call sites: {shapes}")
-    log("large", geometry=run["geom"])
+    geom = run["geom"]
+    log(phase, geometry=geom)
+    want_pool = "float8_e4m3fn" if f8 else "bfloat16"
+    want_f8 = geom["decoder_linears"] if f8 else 0
+    if geom["pool_dtype"] != want_pool or geom["f8_linears"] != want_f8:
+        raise AssertionError(f"{phase}: pools {geom['pool_dtype']}, {geom['f8_linears']} f8 linears")
+    if counts["xkv_splice_f8"] != (counts["xkv_splice"] if f8 else 0):
+        raise AssertionError(f"{phase}: K2 took the f8 route {counts['xkv_splice_f8']} of "
+                             f"{counts['xkv_splice']} times")
     return run
+
+
+def phase_f8(large: dict) -> dict:
+    """The f8 large form beside the large phase: its pools hold half the
+    cross-KV bytes per slot, and its tick, word-emission, peak-memory and
+    weight figures print beside the large phase's."""
+    run = phase_large(f8=True)
+    g, lg = run["geom"], large["geom"]
+    s, ls = run["stats"], large["stats"]
+    log("f8", beside="large", xkv_bytes_per_slot=[g["xkv_bytes_per_slot"], lg["xkv_bytes_per_slot"]],
+        weight_GB=[round(g["weight_bytes"] / 2**30, 3), round(lg["weight_bytes"] / 2**30, 3)],
+        peak_alloc_GB=[round(run["peak"] / 2**30, 3), round(large["peak"] / 2**30, 3)],
+        tick_ms_p50=[s["tick_ms_p50"], ls["tick_ms_p50"]], tick_ms_p95=[s["tick_ms_p95"], ls["tick_ms_p95"]],
+        word_emission_p50_ms=[s["word_emission_p50_ms"], ls["word_emission_p50_ms"]],
+        word_emission_p95_ms=[s["word_emission_p95_ms"], ls["word_emission_p95_ms"]],
+        f8_weight_widening_ms_per_step=round(run["widen_ms"][0], 4),
+        f8_weight_widening_device_ms_per_step=round(run["widen_ms"][1], 4))
+    if 2 * g["xkv_bytes_per_slot"] != lg["xkv_bytes_per_slot"]:
+        raise AssertionError(f"f8 pools hold {g['xkv_bytes_per_slot']} bytes a slot, "
+                             f"bf16 {lg['xkv_bytes_per_slot']}")
+    return run
+
+
+BEAMS = 4               # the beam phase's --beams
+BEAM_SESSIONS = 4       # AudioProcessor sessions in process, plus one over WS /asr
+BEAM_SECONDS = 12.0
+
+
+def phase_reference_beam() -> None:
+    """Beam ticks of the port in f32 on the card (K1) against the CPU
+    (plain versions), the base model from one seed, one session through
+    ``run_tick_batch_beam``: beam 1 equals the greedy tick (``run_tick_batch``)
+    on each device, and beams 1 and 4 give the same integer outputs on both,
+    no_speech_p within 1e-4."""
+    from whisperlivekit_tpu_torch.engine.core import MODEL_DIMS, get_tokenizer
+    from whisperlivekit_tpu_torch.models.whisper import model as wm
+    from whisperlivekit_tpu_torch.streaming import alignatt as A
+    from whisperlivekit_tpu_torch.streaming.alignatt_beam import run_tick_batch_beam
+    from whisperlivekit_tpu_torch.streaming.dispatch import run_tick_batch
+    from whisperlivekit_tpu_torch.streaming.session_plan import TickInputs
+
+    dims = MODEL_DIMS["base"]
+    tok = get_tokenizer(True, language="en", task="transcribe")
+    pcm = speech_pcm(4.0, seed=95)
+    sot = list(tok.sot_sequence_including_notimestamps)
+    ti = TickInputs(audio=pcm.astype(np.float32) / 32768.0, prefix_ids=sot + [400, 401],
+                    sot_index=0, content_frames=len(pcm) // 320, last_attend=-200,
+                    is_last=False, max_new=50)
+    ints = lambda o: (o.new_tokens, [int(f) for f in o.frames], o.n_keep, o.reason,  # noqa: E731
+                      o.last_attend, o.fire)
+    res, launched = {}, 0
+    for side, dev in (("card", CARD), ("cpu", "cpu")):
+        model = wm.init_params(dims, torch.Generator().manual_seed(1), torch.float32, dev)
+        eng = A.AlignAttEngine(model, dims, tok, A.AlignAttConfig(
+            language="en", decoder_type="beam", beam_size=BEAMS))
+        before = flash_encoder_attn.launches
+        with torch.inference_mode():
+            greedy = run_tick_batch(eng, [ti], tok)[0]
+            beams = {b: run_tick_batch_beam(eng, [ti], tok, b)[0] for b in (1, BEAMS)}
+        if side == "card":
+            launched = flash_encoder_attn.launches - before
+        if ints(beams[1]) != ints(greedy):
+            raise AssertionError(f"{side}: beam 1 {ints(beams[1])} is not the greedy tick {ints(greedy)}")
+        res[side] = beams
+    ns_err = max(abs(res["card"][b].no_speech_p - res["cpu"][b].no_speech_p) for b in (1, BEAMS))
+    ok = all(ints(res["card"][b]) == ints(res["cpu"][b]) for b in (1, BEAMS)) and ns_err <= 1e-4 and launched > 0
+    log("reference", model="base f32 random", tick=f"run_tick_batch_beam beams 1, {BEAMS}",
+        gpu={b: ints(o) for b, o in res["card"].items()}, cpu={b: ints(o) for b, o in res["cpu"].items()},
+        beam1_is_greedy=True, no_speech_err=ns_err, k1_launches=launched, ok=ok)
+    if not ok:
+        raise AssertionError("the card's beam tick disagrees with the CPU reference")
+
+
+async def _main_path_beam() -> dict:
+    from aiohttp import web
+
+    from whisperlivekit_tpu_torch.engine.core import TranscriptionEngine, WLKConfig
+    from whisperlivekit_tpu_torch.server.app import WLKServer
+    from whisperlivekit_tpu_torch.session.processor import AudioProcessor
+    from whisperlivekit_tpu_torch.streaming import alignatt_beam as TB
+
+    config = WLKConfig(model_size="random:base", lan="en", pcm_input=True, vac=False, beams=BEAMS,
+                       param_dtype="bfloat16", log_level="WARNING")
+    t0 = time.perf_counter()
+    engine = TranscriptionEngine(config)
+    if engine.device.type != "cuda" or engine.asr.cfg.decoder_type != "beam":
+        raise AssertionError(f"engine on {engine.device}, decoder {engine.asr.cfg.decoder_type}")
+    runner = web.AppRunner(WLKServer(config, engine=engine).app)
+    await runner.setup()  # startup runs the engine's warmup tick
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    host, port = runner.addresses[0][:2]
+    setup_s = time.perf_counter() - t0
+    real, tick_ms = TB.run_tick_batch_beam, []
+
+    def timed(*a, **k):  # session_plan looks the beam tick up on its module at call time
+        t = time.perf_counter()
+        out = real(*a, **k)
+        tick_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+    try:
+        TB.run_tick_batch_beam = timed
+        _reset_kernel_counts()
+        engine.scheduler.reset_stats()
+        t1 = time.perf_counter()
+        pcms = [speech_pcm(BEAM_SECONDS, seed=80 + s) for s in range(BEAM_SESSIONS + 1)]
+        procs = [AudioProcessor(transcription_engine=engine) for _ in range(BEAM_SESSIONS)]
+        texts = await asyncio.gather(
+            *(_feed_processor(p, pcm) for p, pcm in zip(procs, pcms)),
+            _feed_websocket(f"http://{host}:{port}/asr", pcms[-1]),
+        )
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = _kernel_counts()
+        stats = engine.scheduler.stats()
+    finally:
+        TB.run_tick_batch_beam = real
+        await runner.cleanup()
+        TranscriptionEngine.reset()
+    return dict(texts=texts, wall=wall, setup_s=setup_s, counts=counts, stats=stats, tick_ms=tick_ms)
+
+
+def phase_beam() -> dict:
+    """The streaming beam tick: the card against the CPU, then
+    ``random:base`` bf16 with ``beams=4`` serving AudioProcessor sessions
+    and one ``WS /asr`` stream, each session's ticks solo (outside the
+    BatchScheduler, as in the JAX package)."""
+    import gc
+    import tempfile
+
+    from whisperlivekit_tpu_torch.harness.vocab import install_standin_vocab
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="wlk_vocab_") as vocab_dir:
+        install_standin_vocab(vocab_dir)
+        phase_reference_beam()
+        run = asyncio.run(_main_path_beam())
+    counts, ms = run["counts"], run["tick_ms"]
+    words = [sum(len(t.split()) for t, _ in lines) for lines in run["texts"]]
+    log("beam", model=f"random:base bf16, beams {BEAMS}", sessions=len(words), audio_s_each=BEAM_SECONDS,
+        pace=PACE, words_per_session=words, wall_s=round(run["wall"], 3), setup_s=round(run["setup_s"], 3),
+        beam_ticks=len(ms), beam_tick_ms_p50=_quantile(ms, 0.5), beam_tick_ms_p95=_quantile(ms, 0.95),
+        scheduler_ticks=run["stats"]["n_ticks"])
+    log("beam", kernel="flash_encoder_attn", launches=counts["flash_encoder_attn"],
+        launches_by_SxT={f"{s}x{t}": n for (s, t), n in sorted(counts["k1_shapes"].items())},
+        per_tick=round(counts["flash_encoder_attn"] / max(len(ms), 1), 2))
+    _check_k1_bodies("beam", counts)
+    if not ms or run["stats"]["n_ticks"]:
+        raise AssertionError(f"{len(ms)} beam ticks, {run['stats']['n_ticks']} scheduler ticks")
+    if not all(words):
+        raise AssertionError(f"a session got no words: {words}")
+    if not counts["flash_encoder_attn"]:
+        raise AssertionError("K1 never launched in the beam phase")
+    return run
+
+
+def phase_kernels_beam(launched: dict) -> dict:
+    """K1 in bf16 at every (S, T) the beam phase launched it, at its batch:
+    the full-window encoder at one lane (each session's tick runs alone)
+    and the prefill over the beams' dense cross-KV at ``BEAMS`` rows, each
+    prefix bucket launched. Fails on a launched (S, T) it did not check.
+    Returns per-case records."""
+    records = {}
+    for S, T in sorted(launched):
+        if (S, T) == (1500, 1500):
+            label, b, vt = "beam encoder full window", 1, False
+        elif T == 1500 and S in PREFIX_BUCKETS:
+            label, b, vt = f"beam prefill over dense cross-KV, bucket {S}", BEAMS, True
+        else:
+            raise AssertionError(f"the beam run launched K1 at an unchecked shape {(S, T)}")
+        records[(S, T)] = _check_k1(label, "base", S, T, T, vt, torch.bfloat16, b, H)
+    return records
 
 
 LOAD_MODEL = "large-v3-turbo"  # 1280 wide: the large form, with a 4-layer decoder
@@ -1704,12 +2011,16 @@ def main(argv=None) -> int:
     base_launches = timed("main", phase_main)
     front = timed("front", phase_front)
     large = timed("large", phase_large)
+    f8 = timed("f8", phase_f8, large)
+    beam = timed("beam", phase_beam)
+    beam_records = timed("kernels_beam", phase_kernels_beam, beam["counts"]["k1_shapes"])
     load = timed("load", phase_load, card)
     large_records = timed("kernels_large", phase_kernels_large,
-                          {"large-v3": large["geom"], LOAD_MODEL: load["geom"]},
-                          Counter(large["counts"]["k1_shapes"]) + Counter(load["counts"]["k1_shapes"]))
+                          {"large-v3": large["geom"], "large-v3 f8": f8["geom"], LOAD_MODEL: load["geom"]},
+                          Counter(large["counts"]["k1_shapes"]) + Counter(f8["counts"]["k1_shapes"])
+                          + Counter(load["counts"]["k1_shapes"]))
     k3_launched = (Counter(front["counts"]["k3_shapes"]) + Counter(large["counts"]["k3_shapes"])
-                   + Counter(load["counts"]["k3_shapes"]))
+                   + Counter(f8["counts"]["k3_shapes"]) + Counter(load["counts"]["k3_shapes"]))
     k3_records = timed("kernels_k3", phase_kernels_k3, k3_launched)
     # K3's share of the front phase's anchor tick, at its most launched lane count
     b_front = max(front["counts"]["k3_shapes"].items(), key=lambda kv: kv[1])[0]
@@ -1727,26 +2038,39 @@ def main(argv=None) -> int:
     k1_errs = [r["max_abs_err"] for key, r in records.items() if key[2] == "bfloat16"]
     k1_errs += [r["max_abs_err"] for key, r in large_records.items()
                 if key[0] == "flash_encoder_attn" and key[3] == "bfloat16"]
+    k1_errs += [r["max_abs_err"] for r in beam_records.values()]
     k1 = large_records[("flash_encoder_attn", 1500, 1500, "bfloat16")]
     G = large["geom"]["group_width"]
-    k2 = large_records[("xkv_splice", large["geom"]["n_text_layer"], G, "bfloat16")]
+    L = large["geom"]["n_text_layer"]
+    k2 = large_records[("xkv_splice", L, G, "bfloat16", "bfloat16")]
+    k2_f8 = large_records[("xkv_splice", L, G, "float8_e4m3fn", "bfloat16")]
     k3 = k3_records[(8, 480000, 80)]
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     launches = {"flash_encoder_attn": {"base": base_launches,
                                        "front": front["counts"]["flash_encoder_attn"],
                                        "large": large["counts"]["flash_encoder_attn"],
+                                       "f8": f8["counts"]["flash_encoder_attn"],
+                                       "beam": beam["counts"]["flash_encoder_attn"],
                                        "load": load["counts"]["flash_encoder_attn"]},
-                "xkv_splice": {"large": large["counts"]["xkv_splice"], "load": load["counts"]["xkv_splice"]},
+                "xkv_splice": {"large": large["counts"]["xkv_splice"], "f8": f8["counts"]["xkv_splice"],
+                               "load": load["counts"]["xkv_splice"]},
                 "log_mel_pallas": {"front": front["counts"]["log_mel_pallas"],
                                    "large": large["counts"]["log_mel_pallas"],
+                                   "f8": f8["counts"]["log_mel_pallas"],
                                    "load": load["counts"]["log_mel_pallas"]}}
+    # K2's f8 route (float8_e4m3fn pools from bf16 tails): its own record
+    extra = {"xkv_splice": {"f8": dict(
+        {f: k2_f8[f] for f in fields + ("device_ms",)}, timed_shape=f"{L}x{G}x{LH}x{DH}"
+        f"x{large['geom']['pool_t']} float8_e4m3fn pool, bfloat16 tails",
+        launches_by_path={"f8": f8["counts"]["xkv_splice_f8"]})}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0][0], "replaces": KERNELS[name][1],
          "launches": sum(launches[name].values()), "launches_by_path": launches[name],
          "max_abs_err": err, **{f: rec[f] for f in fields}, "timed_shape": shape,
          **{f: rec[f] for f in ("dft_bound_ms", "device_ms", "library_device_ms", "body", "load_route",
                                  "stft_chain_ms", "default_front_ms") if f in rec},
-         **({"f32_source": KERNELS[name][0][1]} if len(KERNELS[name][0]) > 1 else {})}
+         **({"f32_source": KERNELS[name][0][1]} if len(KERNELS[name][0]) > 1 else {}),
+         **extra.get(name, {})}
         for name, rec, err, shape in (
             ("flash_encoder_attn", k1, max(k1_errs), f"B{G}xH{LH}xS1500xT1500xDh{DH} bf16"),
             ("xkv_splice", k2, 0.0, f"{large['geom']['n_text_layer']}x{G}x{LH}x{DH}"

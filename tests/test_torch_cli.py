@@ -81,7 +81,7 @@ def test_usage_and_help(assets, capsys):
     assert TC.main(["--help"]) == 0
     out = capsys.readouterr().out
     assert "usage: wlk-torch [serve|listen|run|transcribe|bench" in out and "--model-path" in out
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         TC.main(["bench"], device="cpu")
 
 

@@ -59,16 +59,14 @@ def chunk(seed, seconds=1.0):
             + 0.05 * rng.standard_normal(t.shape)).astype(np.float32)
 
 
-def _wire(mod, engine, n, group_width, epoch_period=50, enc_cap=8):
+def _wire(mod, engine, n, group_width, epoch_period=50, enc_cap=8, f8=False):
     """n sessions sharing one audio pool, one f32 encoder pool and one
-    allocator of f32 groups."""
+    allocator of f32 groups (``f8``: the allocator's own float8 groups)."""
     torch_side = mod is TA
     pool = mod.AudioPool(capacity=2 * n + 2)
     enc_pool = mod.EncPool(enc_cap, DIMS, dtype=torch.float32 if torch_side else jnp.float32)
-    xkv = mod.XKVAllocator.for_engine(
-        engine, group_width, dtype=torch.float32 if torch_side else jnp.float32,
-        epoch_period=epoch_period,
-    )
+    kw = {} if f8 else dict(dtype=torch.float32 if torch_side else jnp.float32)
+    xkv = mod.XKVAllocator.for_engine(engine, group_width, epoch_period=epoch_period, **kw)
     sessions = []
     for _ in range(n):
         s = mod.AlignAttSession(engine)
@@ -101,13 +99,32 @@ def test_xkv_sessions_commit_identical_tokens(engines, monkeypatch):
     group inc ticks an epoch passes and both sessions re-anchor in one
     whole-group program. After every tick both packages hold the same
     committed token ids."""
-    je, te, tok = engines
+    _commit_identical_tokens(*engines, monkeypatch)
+
+
+def test_f8_sessions_commit_identical_tokens(engines, monkeypatch):
+    """The same drive in the f8 large form: both packages' decoders
+    quantized by JAX's ``quantize_decoder_f8`` (bridged), and
+    ``xkv_cache_dtype="f8"``, so the allocators make float8_e4m3fn pools;
+    every tick both hold the same committed token ids."""
+    _, _, tok = engines
+    jq = JM.quantize_decoder_f8(JM.init_params(DIMS, jax.random.PRNGKey(0), jnp.float32))
+    tq = TM.params_from_jax_numpy(jax.tree.map(np.asarray, jq), DIMS)
+    cfg = dict(CFG, xkv_cache_dtype="f8")
+    je = JA.AlignAttEngine(jq, DIMS, tok, JA.AlignAttConfig(**cfg))
+    te = TA.AlignAttEngine(tq, DIMS, tok, TA.AlignAttConfig(**cfg))
+    xkv = _commit_identical_tokens(je, te, tok, monkeypatch, f8=True)
+    assert xkv.dtype == torch.float8_e4m3fn and xkv.groups[0].k.dtype == torch.float8_e4m3fn
+
+
+def _commit_identical_tokens(je, te, tok, monkeypatch, f8=False):
+    """Returns the port's allocator."""
     calls = _count_programs(monkeypatch)
     from whisperlivekit_tpu.streaming.dispatch import run_tick_batch as jax_run
     from whisperlivekit_tpu_torch.streaming.dispatch import run_tick_batch as torch_run
 
-    sides = [(je, jax_run, *_wire(JA, je, 2, 2, epoch_period=3)),
-             (te, torch_run, *_wire(TA, te, 2, 2, epoch_period=3))]
+    sides = [(je, jax_run, *_wire(JA, je, 2, 2, epoch_period=3, f8=f8)),
+             (te, torch_run, *_wire(TA, te, 2, 2, epoch_period=3, f8=f8))]
     modes, refresh_rows = [], []
     for tick in range(9):
         committed = []
@@ -137,6 +154,7 @@ def test_xkv_sessions_commit_identical_tokens(engines, monkeypatch):
     assert calls.get("alignatt_tick_inc_skv", 0) >= 4, calls
     assert sides[1][4].groups[0].sub_epoch >= 1
     assert any(sum(len(c) for c in s.committed_tokens) for s in sides[1][5])
+    return sides[1][4]
 
 
 

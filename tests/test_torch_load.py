@@ -28,7 +28,7 @@ from whisperlivekit_tpu.models.whisper import load as JL
 from whisperlivekit_tpu.models.whisper.dims import MODEL_DIMS
 from whisperlivekit_tpu_torch.models.whisper import load as TL
 from whisperlivekit_tpu_torch.models.whisper.dims import MODEL_DIMS as PORT_DIMS
-from whisperlivekit_tpu_torch.models.whisper.model import params_from_jax_numpy
+from whisperlivekit_tpu_torch.models.whisper.model import params_from_jax_numpy, quantize_decoder_f8
 from torch_ckpt import canonical_state_dict, hf_config, hf_name, write_hf, write_lora, write_openai
 
 torch.set_num_threads(1)  # tier-1 runs under xdist -n 6
@@ -201,6 +201,13 @@ def test_engine_serves_a_checkpoint_and_random_weights(files):
     model, dims, name = core.load_whisper_params(
         WLKConfig(model_size="random:dev-tiny", param_dtype="float32"), device="cpu")
     assert name == "dev-tiny" and dims == PORT_DIMS["dev-tiny"]
-    with pytest.raises(NotImplementedError, match="f8"):
-        core.load_whisper_params(WLKConfig(model_path=str(files["openai_dims"]), decoder_dtype="f8"),
-                                 device="cpu")
+    # decoder_dtype="f8" quantizes the loaded checkpoint's decoder linears
+    model, _, _ = core.load_whisper_params(
+        WLKConfig(model_path=str(files["openai_dims"]), decoder_dtype="f8"), device="cpu")
+    plain, _, _ = core.load_whisper_params(
+        WLKConfig(model_path=str(files["openai_dims"])), device="cpu")
+    want = quantize_decoder_f8(plain)
+    fc1, ref = model.decoder.blocks[0].fc1, want.decoder.blocks[0].fc1
+    assert fc1.weight.dtype == torch.float8_e4m3fn and fc1.w_scale.dtype == torch.float32
+    assert torch.equal(fc1.weight.view(torch.uint8), ref.weight.view(torch.uint8))
+    assert model.decoder.blocks[0].cross.k.weight.dtype == model.dtype

@@ -344,7 +344,7 @@ def test_detect_language_matches_jax(tok):
     for t, j in zip(tprobs, jprobs):
         assert list(t) == list(j)
         np.testing.assert_allclose(list(t.values()), list(j.values()), rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="9.2"):
+    with pytest.raises(NotImplementedError, match="7.2"):
         TD(tm, DIMS).decode(None)
 
 

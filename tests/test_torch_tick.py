@@ -271,12 +271,14 @@ def test_anchor_with_mel_pallas_matches_jax(engines, monkeypatch):
 
 
 def test_engine_refuses_what_is_not_ported(engines):
-    """f8 and beam still raise, naming their modules; language auto-detect
-    and the fused mel (K3) are ported and build."""
+    """Nothing the AlignAtt engine is configured with is refused any more:
+    f8 storage and beam decoding, the last two it raised for, build now, as
+    language auto-detect and the fused mel (K3) do. A beam session routes
+    its ticks to ``run_tick_batch_beam`` (tests/test_torch_beam.py)."""
     _, te, tok = engines
-    for kw, what in ((dict(language="en", xkv_cache_dtype="f8"), "9.1"),
-                     (dict(language="en", decoder_type="beam", beam_size=4), "alignatt_beam")):
-        with pytest.raises(NotImplementedError, match=what):
-            TA.AlignAttEngine(te.model, DIMS, tok, TA.AlignAttConfig(**kw))
+    for kw in (dict(language="en", xkv_cache_dtype="f8"), dict(language="en", xkv_f8=True),
+               dict(language="en", decoder_type="beam", beam_size=4)):
+        eng = TA.AlignAttEngine(te.model, DIMS, tok, TA.AlignAttConfig(**kw))
+        assert all(getattr(eng.cfg, k) == v for k, v in kw.items())
     eng = TA.AlignAttEngine(te.model, DIMS, tok, TA.AlignAttConfig(language="auto", mel_pallas=True))
     assert eng.cfg.language == "auto" and eng.cfg.mel_pallas

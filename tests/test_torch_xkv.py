@@ -31,6 +31,7 @@ from whisperlivekit_tpu.streaming import pools as JP
 from whisperlivekit_tpu_torch.harness.vocab import write_standin_vocab
 from whisperlivekit_tpu_torch.models.whisper import model as TM
 from whisperlivekit_tpu_torch.ops import xkv_merge as TX
+from whisperlivekit_tpu_torch.ops.f8 import F8
 from whisperlivekit_tpu_torch.streaming import alignatt as TA
 from whisperlivekit_tpu_torch.streaming import pools as TP
 
@@ -42,25 +43,35 @@ L, G, H, Dh, Tp = 4, 3, 2, 64, 1536
 
 
 def _bits(x) -> np.ndarray:
-    """Raw bits of a torch or JAX array, so bf16 compares exactly."""
+    """Raw bits of a torch or JAX array, so bf16 and f8 compare exactly."""
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu()
-        return (x.view(torch.int16) if x.dtype == torch.bfloat16 else x).numpy()
+        view = {torch.bfloat16: torch.int16, F8: torch.uint8}.get(x.dtype)
+        return (x.view(view) if view else x).numpy()
     a = np.asarray(x)
-    return a.view(np.int16) if str(a.dtype) == "bfloat16" else a
+    view = {"bfloat16": np.int16, "float8_e4m3fn": np.uint8}.get(str(a.dtype))
+    return a.view(view) if view else a
 
 
-def _splice_inputs(seed, tail_dtype, pool_dtype):
+def _splice_inputs(seed, tail_dtype, pool_dtype, tail_edges=False):
+    """Pools and tails from one seed; ``tail_edges`` puts overflow,
+    non-finite, near-448 and subnormal values into the tails."""
     rng = np.random.default_rng(seed)
     pk = rng.standard_normal((L, G, H, Dh, Tp)).astype(np.float32)
     tk = rng.standard_normal((L, G, H, Dh, TX.W_SPLICE)).astype(np.float32)
-    j = lambda a, dt: jnp.asarray(a).astype(dt)  # noqa: E731
-    t = lambda a, dt: torch.from_numpy(a).to(dt)  # noqa: E731
-    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
-    jax_in = (j(pk, jdt[pool_dtype]), j(pk * 0.5 + 1.0, jdt[pool_dtype]),
-              j(tk, jdt[tail_dtype]), j(tk * 2.0, jdt[tail_dtype]))
-    torch_in = (t(pk, pool_dtype), t(pk * 0.5 + 1.0, pool_dtype),
-                t(tk, tail_dtype), t(tk * 2.0, tail_dtype))
+    if tail_edges:
+        edges = np.array([447.9, 448.0, 463.9, 464.0, 464.1, 1e4, -1e4, np.inf, -np.inf, np.nan,
+                          -0.0, 2.0 ** -10, 3 * 2.0 ** -10, -2.0 ** -8, 1e-30], np.float32)
+        hit = rng.random(tk.shape) < 0.05
+        tk[hit] = rng.choice(edges, hit.sum())
+        tk *= np.where(rng.random(tk.shape) < 0.05, 300.0, 1.0).astype(np.float32)
+    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16, F8: jnp.float8_e4m3fn}
+    jax_in = tuple(jnp.asarray(a).astype(jdt[dt]) for a, dt in (
+        (pk, pool_dtype), (pk * 0.5 + 1.0, pool_dtype), (tk, tail_dtype), (tk * 2.0, tail_dtype)))
+    # the same bits on both sides (torch rounds f32 NaN to a bf16 NaN of
+    # another sign than XLA does)
+    torch_in = tuple(torch.from_numpy(_bits(a).copy()).view(dt) for a, dt in
+                     zip(jax_in, (pool_dtype, pool_dtype, tail_dtype, tail_dtype)))
     return jax_in, torch_in
 
 
@@ -69,6 +80,8 @@ def _splice_inputs(seed, tail_dtype, pool_dtype):
     (torch.float32, torch.float32),
     (torch.bfloat16, torch.bfloat16),
     (torch.float32, torch.bfloat16),  # the cast rounds to nearest even
+    (torch.float32, F8),              # JAX's f8 cast: overflow to NaN
+    (torch.bfloat16, F8),
 ])
 def test_xkv_splice_plain_matches_jax_exactly(wn, tail_dtype, pool_dtype):
     jax_in, torch_in = _splice_inputs(sum(wn), tail_dtype, pool_dtype)
@@ -87,6 +100,25 @@ def test_xkv_splice_plain_matches_jax_exactly(wn, tail_dtype, pool_dtype):
     assert out[0] is pk and out[1] is pv and TX.xkv_splice.launches == before
     np.testing.assert_array_equal(_bits(pk), _bits(got[0]))
     np.testing.assert_array_equal(_bits(pv), _bits(got[1]))
+
+
+@pytest.mark.parametrize("tail_dtype", [torch.float32, torch.bfloat16])
+def test_xkv_splice_plain_f8_edges_match_jax(tail_dtype):
+    """Tails holding overflow (past 464), +-inf, NaN, near-448, subnormal
+    and -0 values, spliced into f8 pools at an edge lane (win 1: dst0 0),
+    the last lane (win 1500: dst0 Tp-256) and an idle lane: every byte as
+    ``xkv_splice_ref`` writes it, through the wrapper in place."""
+    jax_in, torch_in = _splice_inputs(17, tail_dtype, F8, tail_edges=True)
+    win = np.asarray([1, 1500, 0], np.int32)
+    want = JX.xkv_splice_ref(*jax_in, jnp.asarray(win))
+    pk, pv = torch_in[0].clone(), torch_in[1].clone()
+    got = TX.xkv_splice(pk, pv, *torch_in[2:], torch.from_numpy(win))
+    assert got[0] is pk and pk.dtype == F8
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_bits(g), _bits(w))
+    nan = np.isnan(np.asarray(want[0][:, :2]).astype(np.float32))
+    assert nan.any()  # the overflow and the non-finite values did reach the pool
+    np.testing.assert_array_equal(_bits(pk)[:, 2], _bits(torch_in[0])[:, 2])  # idle lane
 
 
 def test_splice_dst0_matches_jax():
@@ -113,13 +145,16 @@ def test_build_without_nvcc_raises_kernel_error(monkeypatch, tmp_path):
     (torch.float32, torch.float32),
     (torch.bfloat16, torch.bfloat16),
     (torch.float32, torch.bfloat16),
+    (torch.float32, F8),
+    (torch.bfloat16, F8),
 ])
 def test_xkv_splice_kernel_matches_plain_on_gpu(tail_dtype, pool_dtype):
     """The CUDA kernel against its plain version, exactly, with active,
-    edge and inactive lanes."""
+    edge and inactive lanes (f8 pools: tails with overflow and non-finite
+    values)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    _, torch_in = _splice_inputs(5, tail_dtype, pool_dtype)
+    _, torch_in = _splice_inputs(5, tail_dtype, pool_dtype, tail_edges=pool_dtype == F8)
     pk, pv, tk, tv = (x.cuda() for x in torch_in)
     win = torch.tensor([1, 1500, 0], device="cuda")
     want_k, want_v = TX.xkv_splice_plain(pk, pv, tk, tv, win)
@@ -178,6 +213,35 @@ def test_cross_kv_into_pool_matches_jax(weights, dtype):
             assert (diff > 0).mean() < 1e-3, (diff > 0).mean()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_kv_into_pool_f8_matches_jax(weights, dtype):
+    """Into a float8_e4m3fn pool the f32 projection is rounded once, as JAX
+    rounds it: JAX's bytes up to one f8 step where the two packages' f32
+    sums straddle a rounding boundary; the inactive slot keeps every byte,
+    the padding columns are zero bytes."""
+    jp, _ = weights
+    rng = np.random.default_rng(8)
+    Gp = 3
+    enc = rng.standard_normal((Gp, DIMS.n_audio_ctx, DIMS.n_audio_state)).astype(np.float32)
+    shape = (DIMS.n_text_layer, Gp, DIMS.n_text_head, DIMS.head_dim, Tp)
+    pool0 = jnp.asarray(rng.standard_normal(shape).astype(np.float32)).astype(jnp.float8_e4m3fn)
+    active = np.array([True, False, True])
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
+    jparams = jax.tree.map(lambda a: a.astype(jdt), jp)
+    tmodel = TM.params_from_jax_numpy(jax.tree.map(np.asarray, jp), DIMS, dtype=tdt)
+    want = JM.cross_kv_into_pool(jparams, jnp.asarray(enc).astype(jdt), pool0, pool0,
+                                 DIMS, active=jnp.asarray(active))
+    pk = torch.from_numpy(_bits(pool0).copy()).view(F8)
+    pv = pk.clone()
+    got = TM.cross_kv_into_pool(tmodel, torch.from_numpy(enc).to(tdt), pk, pv, DIMS,
+                                active=torch.from_numpy(active))
+    assert got.k is pk and got.v is pv and pk.dtype == F8
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_bits(g)[:, 1], _bits(pool0)[:, 1])
+        assert not _bits(g)[:, active][..., DIMS.n_audio_ctx:].any()
+        _assert_f8_close(g, w, dtype)
+
+
 # ---------------------------------------------------------------------------
 # The pooled slice: anchor_pooled -> anchor_group -> inc_skv x 3
 # ---------------------------------------------------------------------------
@@ -196,6 +260,20 @@ def engines(tmp_path_factory, weights):
             TA.AlignAttEngine(tm, DIMS, tok, TA.AlignAttConfig(**cfg)), tok)
 
 
+@pytest.fixture(scope="module")
+def engines_f8(engines, weights):
+    """The f8 large form on both sides: JAX's ``quantize_decoder_f8`` weights
+    (bridged into the port) and ``xkv_cache_dtype="f8"``."""
+    jp, _ = weights
+    _, _, tok = engines
+    jq = JM.quantize_decoder_f8(jp)
+    tq = TM.params_from_jax_numpy(jax.tree.map(np.asarray, jq), DIMS)
+    cfg = dict(language="en", max_steps=4, xkv_cache=True, enc_tail_frames=128,
+               enc_rewrite_margin=16, xkv_cache_dtype="f8")
+    return (JA.AlignAttEngine(jq, DIMS, tok, JA.AlignAttConfig(**cfg)),
+            TA.AlignAttEngine(tq, DIMS, tok, TA.AlignAttConfig(**cfg)), tok)
+
+
 def _speechlike(B, seconds, seed):
     rng = np.random.default_rng(seed)
     t = np.arange(int(16000 * seconds)) / 16000
@@ -207,13 +285,30 @@ def _speechlike(B, seconds, seed):
     return (np.clip(sig, -1, 1 - 1 / 32768) * 32768).astype(np.int16)
 
 
+def _assert_f8_close(got, want, what=""):
+    """Two f8 tensors rounded from f32 projections that differ in summation
+    order: NaN exactly where the other has NaN, every other byte equal or
+    one f8 step apart (an f32 value within its own rounding error of an f8
+    midpoint), and under 1e-4 of them not equal."""
+    g, w = _bits(got), _bits(want)
+    gf = np.asarray(torch.from_numpy(g.copy()).view(F8).float())
+    wf = np.asarray(torch.from_numpy(w.copy()).view(F8).float())
+    np.testing.assert_array_equal(np.isnan(gf), np.isnan(wf), err_msg=what)
+    fin = ~np.isnan(wf)
+    m = np.maximum(np.abs(gf[fin]), np.abs(wf[fin]))
+    step = np.where(m < 2.0 ** -6, 2.0 ** -9, 2.0 ** (np.floor(np.log2(np.maximum(m, 2.0 ** -6))) - 3))
+    assert (np.abs(gf[fin] - wf[fin]) <= step).all(), what
+    assert (g != w).mean() < 1e-4, (what, (g != w).mean())
+
+
 class _Sides:
     """The same group pools as JAX arrays (replaced by each program) and as
-    torch tensors (updated in place), started from the same random bits."""
+    torch tensors (updated in place), started from the same random bits.
+    ``pool_dtype=F8`` makes the cross-KV pools float8_e4m3fn."""
 
     NAMES = ("k", "v", "enc", "skv_k", "skv_v", "asum", "asq", "alast", "acount", "tok")
 
-    def __init__(self, Wc, K, seed):
+    def __init__(self, Wc, K, seed, pool_dtype=torch.float32):
         rng = np.random.default_rng(seed)
         shapes = dict(
             k=(DIMS.n_text_layer, G, DIMS.n_text_head, DIMS.head_dim, Tp),
@@ -226,7 +321,14 @@ class _Sides:
         self.np = {n: rng.standard_normal(shapes[n]).astype(np.float32) for n in shapes}
         self.np["tok"] = rng.integers(0, 50000, (G, DIMS.n_text_ctx)).astype(np.int32)
         self.j = {n: jnp.asarray(a) for n, a in self.np.items()}
+        self.f8 = pool_dtype == F8
+        if self.f8:
+            for n in ("k", "v"):
+                self.j[n] = self.j[n].astype(jnp.float8_e4m3fn)
+                self.np[n] = _bits(self.j[n]).copy()
         self.t = {n: torch.from_numpy(a.copy()) for n, a in self.np.items()}
+        if self.f8:
+            self.t["k"], self.t["v"] = self.t["k"].view(F8), self.t["v"].view(F8)
 
     def jax_pools(self):
         return [self.j[n] for n in self.NAMES]
@@ -240,9 +342,19 @@ class _Sides:
 
     def compare(self, what):
         for n in self.NAMES:
+            if self.f8 and n in ("k", "v"):
+                assert self.t[n].dtype == F8 and self.j[n].dtype == jnp.float8_e4m3fn
+                _assert_f8_close(self.t[n], self.j[n], f"{what}: {n}")
+                continue
             got, want = self.t[n].numpy(), np.asarray(self.j[n])
             if n == "tok":
                 np.testing.assert_array_equal(got, want, err_msg=f"{what}: {n}")
+            elif self.f8 and n in ("asum", "asq", "alast"):
+                # a frame whose f8 key is one step off JAX's moves the
+                # attention at that frame a little in every row the running
+                # sums add up: 1e-3, and past 1e-4 only at such frames
+                np.testing.assert_allclose(got, want, rtol=0, atol=1e-3, err_msg=f"{what}: {n}")
+                assert (np.abs(got - want) > 1e-4).mean() < 1e-3, f"{what}: {n}"
             else:
                 np.testing.assert_allclose(got, want, rtol=0, atol=1e-4, err_msg=f"{what}: {n}")
 
@@ -278,11 +390,23 @@ def _refresh_plan(prefix, mirror, R, Wc, sot_index):
 def test_pooled_slice_matches_jax(engines):
     """Slot 1 never runs (padded, then inactive): its pool rows keep every
     bit but the scratch row Wc-1, where inactive lanes park their writes."""
-    je, te, tok = engines
+    _pooled_slice(*engines, pool_dtype=torch.float32)
+
+
+def test_pooled_slice_f8_matches_jax(engines_f8):
+    """The f8 large form (``decoder_dtype="f8"`` weights, float8_e4m3fn
+    cross-KV pools): the chunked anchor, the whole-group anchor and three
+    pooled inc ticks give JAX's packed integers; the f8 pools hold JAX's
+    bytes up to one f8 step where the two f32 projections straddle an f8
+    rounding boundary (_assert_f8_close)."""
+    _pooled_slice(*engines_f8, pool_dtype=F8)
+
+
+def _pooled_slice(je, te, tok, pool_dtype):
     max_steps, tail, p_max = 4, 128, 32
     Wc = 96 + 16 + max_steps + 2
     K = int(je.align_layers.shape[0])
-    sides = _Sides(Wc, K, seed=11)
+    sides = _Sides(Wc, K, seed=11, pool_dtype=pool_dtype)
     idle = {n: sides.np[n][:, 1].copy() if n in ("k", "v", "skv_k", "skv_v") else None
             for n in _Sides.NAMES}
     pcm = _speechlike(2, 8.0, 3)
@@ -384,7 +508,7 @@ def test_pooled_slice_matches_jax(engines):
         sides.compare(what)
         # slot 1 never ran: every bit of its rows stays, bar the scratch row
         for n in ("k", "v"):
-            np.testing.assert_array_equal(sides.t[n].numpy()[:, 1], idle[n], err_msg=f"{what}: {n}")
+            np.testing.assert_array_equal(_bits(sides.t[n])[:, 1], idle[n], err_msg=f"{what}: {n}")
         for n in ("skv_k", "skv_v"):
             np.testing.assert_array_equal(sides.t[n].numpy()[:, 1, : Wc - 1], idle[n][:, : Wc - 1])
         for n in ("asum", "asq", "alast", "acount", "tok"):
@@ -508,8 +632,11 @@ def test_refresh_scatter_with_duplicate_rows_is_determined(engines):
 def test_engine_builds_the_large_form_and_refuses_f8(weights, engines):
     """At d >= 1280 the engine picks the large form (xkv_cache "auto" and
     True): the serving cap and commit budget, the large-v3 tail and top
-    prefix bucket. f8 pools still raise, naming their queue item; language
-    auto-detect and the fused mel (K3) build."""
+    prefix bucket. f8 storage is ported now and no longer refused:
+    ``xkv_cache_dtype="f8"`` and ``xkv_f8`` build, the allocator then makes
+    float8_e4m3fn pools at half the cross-KV bytes per slot, as JAX's
+    allocator counts them; language auto-detect and the fused mel (K3)
+    build."""
     _, te, tok = engines
     large = MODEL_DIMS["large-v3"]
     for xkv in ("auto", True):
@@ -518,13 +645,61 @@ def test_engine_builds_the_large_form_and_refuses_f8(weights, engines):
         assert eng.cfg.xkv_cache is True
         assert (eng.serving_prefix_cap, eng.serving_commit_budget) == (96, 16)
         assert eng.cfg.enc_tail_frames == 160 and eng.prefix_buckets[-1] == 256
-    for kw, what in ((dict(xkv_cache_dtype="f8"), "9.1"), (dict(xkv_f8=True), "9.1")):
-        with pytest.raises(NotImplementedError, match=what):
-            TA.AlignAttEngine(te.model, large, tok, TA.AlignAttConfig(language="en", **kw),
-                              align_pairs=[(0, 0)])
+    model16 = TM.params_from_jax_numpy(jax.tree.map(np.asarray, weights[0]), DIMS, dtype=torch.bfloat16)
+    bf16 = TA.AlignAttEngine(model16, large, tok, TA.AlignAttConfig(language="en"),
+                             align_pairs=[(0, 0)])
+    f8 = TA.AlignAttEngine(te.model, large, tok, TA.AlignAttConfig(language="en", xkv_cache_dtype="f8"),
+                           align_pairs=[(0, 0)])
+    assert TA.AlignAttEngine(te.model, large, tok, TA.AlignAttConfig(language="en", xkv_f8=True),
+                             align_pairs=[(0, 0)]).cfg.xkv_f8
+    assert TP.xkv_pool_dtype(f8) == F8 and TP.xkv_pool_dtype(bf16) == torch.bfloat16
+    rows = {}
+    for name, eng, jdt in (("bf16", bf16, jnp.bfloat16), ("f8", f8, jnp.float8_e4m3fn)):
+        alloc = TP.XKVAllocator.for_engine(eng, 8, skv_dtype=torch.bfloat16)
+        assert alloc.dtype == TP.xkv_pool_dtype(eng)
+        rows[name] = TP.XKVGroupPool.row_bytes(large, alloc.dtype)
+        assert rows[name] == JP.XKVGroupPool.row_bytes(large, jdt)
+    assert 2 * rows["f8"] == rows["bf16"]
     eng = TA.AlignAttEngine(te.model, large, tok, TA.AlignAttConfig(language="auto", mel_pallas=True),
                             align_pairs=[(0, 0)])
     assert eng.cfg.xkv_cache is True and eng.cfg.mel_pallas
+
+
+def test_legacy_tick_xkv_f8_matches_jax(engines_f8):
+    """The plan-less full-window program with the legacy ``xkv_f8`` (the
+    dense cross-KV rounded from f32 to f8, widened per layer by the decode)
+    and the quantized decoder: JAX's packed integers, ``no_speech_p`` within
+    1e-5; the dense f8 projection equals JAX's bytes up to one f8 step."""
+    je, te, tok = engines_f8
+    B, p_max = 2, 32
+    audio = np.zeros((B, N), np.int16)
+    audio[:, : 3 * 16000] = _speechlike(B, 3.0, 6)
+    sot = list(tok.sot_sequence_including_notimestamps)
+    arr = dict(prefix=np.full((B, p_max), tok.eot, np.int32), prefix_len=np.full(B, len(sot), np.int32),
+               sot_index=np.zeros(B, np.int32), content_frames=np.full(B, 150, np.int32),
+               last_attend=np.full(B, -200, np.int32), is_last=np.array([False, True]),
+               max_new=np.full(B, 50, np.int32), active=np.array([True, True]))
+    arr["prefix"][:, : len(sot)] = sot
+    names = ("prefix", "prefix_len", "sot_index", "content_frames", "last_attend", "is_last", "max_new")
+    statics = dict(dims=DIMS, p_max=p_max, max_steps=4, eot=tok.eot, ts_begin=tok.timestamp_begin,
+                   no_speech_tok=tok.no_speech, space_tok=tok.encode(" ")[0], xkv_f8=True)
+    jo = JA.alignatt_tick(
+        je.params, jnp.asarray(audio), *(jnp.asarray(arr[n]) for n in names), je.suppress_mask,
+        je.align_layers, je.align_heads, jnp.int32(25), jnp.int32(200), jnp.float32(0.5),
+        jnp.asarray(arr["active"]), je.cif_w, je.cif_b, **statics)
+    to = TA.alignatt_tick(
+        te.model, torch.from_numpy(audio), *(torch.from_numpy(arr[n]) for n in names),
+        te.suppress_mask, te.align_layers, te.align_heads, 25, 200, 0.5,
+        torch.from_numpy(arr["active"]), te.cif_w, te.cif_b, **statics)
+    _packed_equal(to, jo, "legacy xkv_f8")
+    enc = np.random.default_rng(4).standard_normal((B, 300, DIMS.n_audio_state)).astype(np.float32)
+    for transposed in (True, False):
+        jx = JM.cross_kv(je.params, jnp.asarray(enc), DIMS, out_dtype=jnp.float8_e4m3fn,
+                         transposed=transposed)
+        tx = TM.cross_kv(te.model, torch.from_numpy(enc), DIMS, out_dtype=F8, transposed=transposed)
+        for g, w in zip(tx, jx):
+            assert g.dtype == F8 and tuple(g.shape) == w.shape
+            _assert_f8_close(g, w, f"transposed={transposed}")
 
 
 def test_inc_pooled_matches_jax(engines):

@@ -323,8 +323,8 @@ def cmd_convert(argv, device=None) -> int:
 
 def cmd_bench(argv, device=None) -> int:
     raise NotImplementedError(
-        "bench (whisperlivekit_tpu/bench/) is not ported yet: ROADMAP queue 1 item 1, "
-        "the bench twin, waits for a benchmark PR"
+        "bench (whisperlivekit_tpu/bench/) is not ported yet: ROADMAP queue 1 item 4, "
+        "with item 1's bench twin, waits for a benchmark PR"
     )
 
 

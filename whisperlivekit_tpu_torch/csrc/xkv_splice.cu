@@ -27,8 +27,19 @@
 // Where the tail's dtype differs from the pool's it rounds with
 // __float2bfloat16_rn (round to nearest even, as Tensor.to does). TMA bulk
 // copies are later work.
+//
+// float8_e4m3fn pools (the f8 large form, xkv_cache_dtype="f8"): the cast
+// must give JAX's bytes (ml_dtypes): round to nearest even, and NaN with the
+// input's sign for every magnitude that rounds past 448 (above 464), for
+// +-inf and for NaN. PTX's only convert to e4m3 (cvt.rn.satfinite)
+// saturates to 448 instead, so the kernel rounds in integer arithmetic on
+// the f32 bits, the same arithmetic as ops/f8.py to_e4m3fn (bf16 tails widen
+// exactly to f32 first). A 16-byte pool vector is 16 columns; dst0 is a
+// multiple of 128 columns and so of 128 bytes, and the stores stay aligned.
+// Bytes moved per element: the tail's 4 or 2 read, 1 written.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,6 +86,62 @@ template <> struct Cvt<float, __nv_bfloat16> {
     const float2 b = __bfloat1622float2(h[1]);
     Vec16 r;
     *reinterpret_cast<float4*>(r.w) = make_float4(a.x, a.y, b.x, b.y);
+    return r;
+  }
+};
+
+// float -> float8_e4m3fn byte, as JAX rounds (see the note at the top)
+__device__ __forceinline__ uint32_t e4m3_from_f32(float x) {
+  const uint32_t bits = __float_as_uint(x);
+  const uint32_t sign = (bits >> 24) & 0x80u;
+  const uint32_t mag = bits & 0x7FFFFFFFu;
+  uint32_t code;
+  if (mag >= 0x7F800000u) {  // +-inf, NaN
+    code = 0x7Fu;
+  } else if (mag < 0x3C800000u) {  // below 2^-6: a multiple of 2^-9, to even
+    code = static_cast<uint32_t>(__float2int_rn(__uint_as_float(mag) * 512.0f));
+  } else {  // round the mantissa to 3 bits, to even, and rebias 127 -> 7
+    const uint32_t r = ((mag + 0x7FFFFu + ((mag >> 20) & 1u)) >> 20) - (120u << 3);
+    code = r > 0x7Eu ? 0x7Fu : r;
+  }
+  return code | sign;
+}
+
+__device__ __forceinline__ uint32_t pack4_e4m3(float a, float b, float c, float d) {
+  return e4m3_from_f32(a) | (e4m3_from_f32(b) << 8) | (e4m3_from_f32(c) << 16) |
+         (e4m3_from_f32(d) << 24);  // the first element at the lowest address
+}
+
+template <> struct Cvt<__nv_fp8_e4m3, float> {
+  static constexpr int VEC = 16;
+  __device__ static Vec16 load(const float* src) {
+    const float4* s = reinterpret_cast<const float4*>(src);
+    Vec16 r;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 a = s[i];
+      r.w[i] = pack4_e4m3(a.x, a.y, a.z, a.w);
+    }
+    return r;
+  }
+};
+
+template <> struct Cvt<__nv_fp8_e4m3, __nv_bfloat16> {
+  static constexpr int VEC = 16;
+  __device__ static Vec16 load(const __nv_bfloat16* src) {
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+    Vec16 r;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const uint4 raw = s[i];
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      const float2 a = __bfloat1622float2(h[0]);
+      const float2 b = __bfloat1622float2(h[1]);
+      const float2 c = __bfloat1622float2(h[2]);
+      const float2 d = __bfloat1622float2(h[3]);
+      r.w[2 * i] = pack4_e4m3(a.x, a.y, b.x, b.y);
+      r.w[2 * i + 1] = pack4_e4m3(c.x, c.y, d.x, d.y);
+    }
     return r;
   }
 };
@@ -127,7 +194,8 @@ int launch(void* pk, void* pv, const void* tk, const void* tv, const int* win, i
 
 extern "C" {
 
-// dtype codes: 0 = float32, 1 = bfloat16. Returns 0 on success, a
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float8_e4m3fn (pools only).
+// Returns 0 on success, a
 // cudaError_t code when the launch was refused, or -1 for arguments the
 // kernel does not take. All tensors contiguous: pools [L, G, rows, Tp],
 // tails [L, G, rows, 256], win [G] int32, all on the device of `stream`.
@@ -147,6 +215,12 @@ int wlk_xkv_splice(void* pool_k, void* pool_v, const void* tail_k, const void* t
   if (pool_dtype == 0 && tail_dtype == 1)
     return launch<float, __nv_bfloat16>(pool_k, pool_v, tail_k, tail_v, win, L, G, rows,
                                         t_pool, s);
+  if (pool_dtype == 2 && tail_dtype == 0)
+    return launch<__nv_fp8_e4m3, float>(pool_k, pool_v, tail_k, tail_v, win, L, G, rows,
+                                        t_pool, s);
+  if (pool_dtype == 2 && tail_dtype == 1)
+    return launch<__nv_fp8_e4m3, __nv_bfloat16>(pool_k, pool_v, tail_k, tail_v, win, L, G,
+                                                rows, t_pool, s);
   return -1;
 }
 

@@ -5,7 +5,7 @@ whisperlivekit_tpu/decoding/task.py that language auto-detect needs).
 the full-window encoding, with a softmax over the language tokens only
 (reference whisper/decoding.py detect_language). Offline transcription
 (``decode``: the greedy loop, the logit filters and the timestamp rules) is
-ROADMAP queue 1 item 9.2 and raises until it is ported.
+ROADMAP queue 1 item 7.2 and raises until it is ported.
 """
 
 from __future__ import annotations
@@ -64,5 +64,5 @@ class WhisperDecoder:
     def decode(self, *args, **kwargs):
         raise NotImplementedError(
             "offline decoding (decode, the greedy loop and the logit filters) is "
-            "ROADMAP queue 1 item 9.2, not ported yet"
+            "ROADMAP queue 1 item 7.2, not ported yet"
         )

@@ -12,8 +12,8 @@ seeded ``torch.Generator`` (the numbers differ from the JAX package's
 ``params_from_jax_numpy`` or load one checkpoint in both packages).
 
 What is not ported yet raises NotImplementedError naming the module: the
-f8 decoder, the LocalAgreement, windowed, cloud, Qwen3 and Voxtral
-backends, the batched JAX VAD, diarization and translation.
+LocalAgreement, windowed, cloud, Qwen3 and Voxtral backends, the batched
+JAX VAD, diarization and translation.
 """
 
 from __future__ import annotations
@@ -63,8 +63,6 @@ def load_whisper_params(config: WLKConfig, device=None):
     dtype = _dtype_from_str(config.param_dtype)
     size = config.model_size
     path = config.model_path or config.model_dir
-    if getattr(config, "decoder_dtype", "bf16") == "f8":
-        raise NotImplementedError("decoder_dtype='f8' (quantize_decoder_f8) is not ported yet")
 
     if (path and str(path).startswith("random")) or size.startswith("random"):
         spec = size.split(":", 1)[-1] if ":" in size else ("base" if size.startswith("random") else size)
@@ -73,9 +71,14 @@ def load_whisper_params(config: WLKConfig, device=None):
         dims = MODEL_DIMS.get(spec, MODEL_DIMS["base"])
         logger.warning("Initializing RANDOM weights (%s dims, seed %d)", spec, RANDOM_WEIGHTS_SEED)
         gen = torch.Generator().manual_seed(RANDOM_WEIGHTS_SEED)
-        return wm.init_params(dims, gen, dtype=dtype, device=device), dims, spec
-    return load_model(path or size, dtype=dtype, lora_path=config.lora_path,
-                      cache_dir=config.model_cache_dir, device=device)
+        model, name = wm.init_params(dims, gen, dtype=dtype, device=device), spec
+    else:
+        model, dims, name = load_model(path or size, dtype=dtype, lora_path=config.lora_path,
+                                       cache_dir=config.model_cache_dir, device=device)
+    if getattr(config, "decoder_dtype", "bf16") == "f8":
+        logger.info("Quantizing decoder block weights to f8_e4m3 (weight-only)")
+        wm.quantize_decoder_f8(model)
+    return model, dims, name
 
 
 class SimulStreamingASR:

@@ -1,7 +1,7 @@
 """Where one streaming tick of the port spends its time on the GPU.
 
     python -m whisperlivekit_tpu_torch.harness.profile_tick [--model base|large-v3]
-        [--lanes 8] [--ticks 4] [--full-steps] [--trace DIR]
+        [--lanes 8] [--ticks 4] [--full-steps] [--f8] [--beams N] [--trace DIR]
 
 Builds ``random:<model>`` (bf16, seeded) on the card, runs ``--lanes``
 AlignAtt sessions through ``run_tick_batch`` with an AudioPool and an
@@ -13,7 +13,11 @@ cost). With random weights, lanes stop after different numbers of decode
 steps, so ticks vary; ``--full-steps`` turns the stop conditions off (no
 end-of-text, no-speech, gate or rewind stop), so every lane decodes
 ``max_steps`` tokens every tick and runs at different lane counts do the
-same work per lane. Prints the top operators by device time and by host time, then one
+same work per lane. ``--f8`` serves the f8 large form (the decoder's
+block linears quantized, float8_e4m3fn cross-KV pools); ``--beams N``
+serves beam sessions, whose ticks run one session each through
+``run_tick_batch_beam`` (no pools, as the engine serves them): a "tick"
+is then every session's beam tick in turn. Prints the top operators by device time and by host time, then one
 JSON line with the tick's wall time, device-busy time (the kernels' summed
 device time), idle share, kernel launches per tick and the shares of K1
 (flash_encoder_attn: its kernels of either body, launches by body) and
@@ -45,6 +49,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ticks", type=int, default=4, help="inc ticks timed, then traced")
     ap.add_argument("--full-steps", action="store_true",
                     help="no lane stops early: every tick decodes max_steps tokens per lane")
+    ap.add_argument("--f8", action="store_true", help="f8 decoder weights and f8 cross-KV pools")
+    ap.add_argument("--beams", type=int, default=1, help="beam sessions with this many beams")
     ap.add_argument("--trace", default=None, help="directory for a Chrome trace")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -61,6 +67,7 @@ def main(argv=None) -> int:
     from ..ops.flash_encoder import flash_encoder_attn
     from ..ops.xkv_merge import xkv_splice
     from ..streaming import alignatt as A
+    from ..streaming.alignatt_beam import run_tick_batch_beam
     from ..streaming.dispatch import run_tick_batch
     from ..streaming.pools import AudioPool, EncPool, XKVAllocator
     from .vocab import install_standin_vocab
@@ -71,22 +78,28 @@ def main(argv=None) -> int:
         tok = get_tokenizer(True, num_languages=dims.num_languages, language="en",
                             task="transcribe")
     model = wm.init_params(dims, torch.Generator().manual_seed(0), torch.bfloat16, "cuda")
+    if args.f8:
+        wm.quantize_decoder_f8(model)
     # the model's published alignment heads, as TranscriptionEngine serves it
-    cfg = A.AlignAttConfig(language="en")
+    kw = dict(language="en", xkv_cache_dtype="f8" if args.f8 else "bf16")
+    if args.beams > 1:
+        kw.update(decoder_type="beam", beam_size=args.beams)
     if args.full_steps:  # no-speech, gate and rewind never fire
-        cfg = A.AlignAttConfig(language="en", nonspeech_prob=2.0,
-                               frame_threshold=-(1 << 20), rewind_threshold=1 << 20)
+        kw.update(nonspeech_prob=2.0, frame_threshold=-(1 << 20), rewind_threshold=1 << 20)
+    cfg = A.AlignAttConfig(**kw)
     engine = A.AlignAttEngine(model, dims, tok, cfg, model_name=args.model)
     if args.full_steps:  # and end-of-text is never sampled
         engine.suppress_mask[tok.eot] = float("-inf")
     apool = AudioPool(args.lanes, device="cuda")
     epool = EncPool(args.lanes + 1, dims, dtype=torch.bfloat16, device="cuda")
     # the large form: one group of all lanes; no epoch anchor inside the run
-    xkv = XKVAllocator.for_engine(engine, args.lanes) if engine.cfg.xkv_cache else None
+    xkv = XKVAllocator.for_engine(engine, args.lanes) if engine.cfg.xkv_cache and args.beams == 1 else None
+    beam = args.beams > 1
     sessions = []
     for _ in range(args.lanes):
         s = A.AlignAttSession(engine)
-        s.pool, s.enc_pool, s.xkv_alloc = apool, epool, xkv
+        if not beam:
+            s.pool, s.enc_pool, s.xkv_alloc = apool, epool, xkv
         sessions.append(s)
     rng = np.random.default_rng(0)
 
@@ -98,7 +111,10 @@ def main(argv=None) -> int:
             s.insert_audio((a + 0.02 * rng.standard_normal(t.shape)).astype(np.float32))
             tis.append(s.prepare_tick(False))
         t0 = time.perf_counter()
-        outs = run_tick_batch(engine, tis, tok, pool=apool, enc_pool=epool, xkv=xkv)
+        if beam:
+            outs = [run_tick_batch_beam(engine, [ti], tok, args.beams)[0] for ti in tis]
+        else:
+            outs = run_tick_batch(engine, tis, tok, pool=apool, enc_pool=epool, xkv=xkv)
         torch.cuda.synchronize()
         for s, ti, o in zip(sessions, tis, outs):
             s.finish_tick(ti, o)
@@ -140,7 +156,8 @@ def main(argv=None) -> int:
         prof.export_chrome_trace(f"{args.trace}/profile_tick.json")
     busy_s = device_us / 1e6 / args.ticks
     print(json.dumps({
-        "model": f"random:{args.model} bf16", "lanes": args.lanes, "ticks": args.ticks,
+        "model": f"random:{args.model} bf16", "f8": args.f8, "beams": args.beams,
+        "lanes": args.lanes, "ticks": args.ticks,
         "full_steps": args.full_steps, "max_steps": engine.cfg.max_steps,
         "modes": sorted(set(modes)), "first_tick_ms": round(1e3 * first, 2),
         "tick_ms_untraced": [round(1e3 * w, 2) for w in untraced],

@@ -15,7 +15,8 @@ signatures and layouts, so the parity tests compare like with like:
 
 Dense weights are stored [out, in] (``F.linear``'s layout);
 ``params_from_jax_numpy`` converts the JAX pytree (stacked [L, ...] leaves,
-[in, out] dense weights) into a ``Whisper`` module. The flash kernel
+[in, out] dense weights; ``quantize_decoder_f8``'s float8 ``{w, w_scale}``
+too) into a ``Whisper`` module. The flash kernel
 (ops/flash_encoder.py) runs when the tensors are on CUDA, where the JAX
 module checks for the TPU backend.
 """
@@ -30,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.f8 import F8, F8_MAX, cast_to, to_e4m3fn, write_cast
 from .dims import ModelDimensions
 
 
@@ -45,10 +47,30 @@ def _flash_attn_available(x: torch.Tensor, dh: int) -> bool:
 
 
 class Dense(nn.Module):
+    """``weight`` [out, in] and ``bias``. The f8 form (``quantize_decoder_f8``)
+    holds a float8_e4m3fn ``weight`` and its f32 per-output-channel
+    ``w_scale``. A module-wide cast (``model.to(dtype=...)``) would widen the
+    one and round the other, so it passes both by: they only follow the
+    module between devices."""
+
     def __init__(self, d_in: int, d_out: int, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(d_out, d_in))
         self.bias = nn.Parameter(torch.zeros(d_out)) if bias else None
+        self.register_buffer("w_scale", None)
+
+    def _apply(self, fn, recurse=True):
+        if self.w_scale is None:
+            return super()._apply(fn, recurse)
+        w, scale = self.weight, self.w_scale
+        self._parameters["weight"], self._buffers["w_scale"] = None, None
+        try:
+            super()._apply(fn, recurse)
+        finally:
+            dev = fn(torch.empty(0, device=w.device)).device
+            self._parameters["weight"] = nn.Parameter(w.data.to(dev), requires_grad=False)
+            self._buffers["w_scale"] = scale.to(dev)
+        return self
 
 
 class LayerNorm(nn.Module):
@@ -162,7 +184,13 @@ def params_from_jax_numpy(tree, dims: ModelDimensions, dtype=None, device="cpu")
         param.data = torch.from_numpy(np.array(arr, dtype=np.float32, copy=True))
 
     def put_dense(mod: Dense, p, layer: int) -> None:
-        put(mod.weight, np.asarray(p["w"], np.float32)[layer].T)
+        w = np.asarray(p["w"])
+        if w.dtype.name == "float8_e4m3fn":  # quantize_decoder_f8's {w, w_scale}
+            w8 = np.ascontiguousarray(w.view(np.uint8)[layer].T)
+            mod.weight = nn.Parameter(torch.from_numpy(w8).view(F8), requires_grad=False)
+            mod.w_scale = torch.from_numpy(np.array(p["w_scale"], np.float32)[layer])
+        else:
+            put(mod.weight, np.asarray(w, np.float32)[layer].T)
         if mod.bias is not None:
             put(mod.bias, np.asarray(p["b"], np.float32)[layer])
 
@@ -197,8 +225,35 @@ def params_from_jax_numpy(tree, dims: ModelDimensions, dtype=None, device="cpu")
     put_ln(model.decoder.ln, dec["ln"])
     model = model.to(device=device)
     if dtype is not None:
-        model = model.to(dtype=dtype)
+        model = model.to(dtype=dtype)  # f8 weights and their scales keep theirs
     return model.requires_grad_(False)
+
+
+def _f8_linears(model: Whisper):
+    """The decoder-block linears that ``quantize_decoder_f8`` converts."""
+    for blk in model.decoder.blocks:
+        yield from (blk.attn.q, blk.attn.k, blk.attn.v, blk.attn.o,
+                    blk.cross.q, blk.cross.o, blk.fc1, blk.fc2)
+
+
+def quantize_decoder_f8(model: Whisper) -> Whisper:
+    """Quantize the decoder blocks' linear weights to float8_e4m3fn with f32
+    per-output-channel scales, in place (JAX ``quantize_decoder_f8``):
+    self q/k/v/o, cross q/o and the MLP. Cross k/v (run once per anchor) and
+    the token embedding (also the unembedding) stay. Each weight is divided
+    in f32 by its channel's scale ``max(amax / 448, 1e-12)`` and rounded as
+    JAX rounds (``to_e4m3fn``), so the bytes and scales equal JAX's."""
+    for mod in _f8_linears(model):
+        if mod.w_scale is not None:
+            continue
+        w = mod.weight.detach().float()                       # [out, in]
+        amax = w.abs().amax(dim=1)
+        # a tensor divisor: CUDA turns a division by a Python number into a
+        # product with its reciprocal, which is not JAX's f32 division
+        scale = torch.clamp(amax / torch.full_like(amax, F8_MAX), min=1e-12)
+        mod.weight = nn.Parameter(to_e4m3fn(w / scale[:, None]), requires_grad=False)
+        mod.w_scale = scale
+    return model
 
 
 # ---------------------------------------------------------------------------
@@ -226,8 +281,13 @@ def _linear_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def dense(x: torch.Tensor, p: Dense) -> torch.Tensor:
-    """x @ w (+ b) in f32, rounded once to x's dtype, as JAX's ``dense``."""
-    y = _linear_f32(x, p.weight)
+    """x @ w (+ b) in f32, rounded once to x's dtype, as JAX's ``dense``. An
+    f8 weight is widened to x's dtype for the product, and its channel
+    scale multiplies the f32 result before the bias."""
+    if p.weight.dtype == F8:
+        y = _linear_f32(x, p.weight.to(x.dtype)) * p.w_scale
+    else:
+        y = _linear_f32(x, p.weight)
     if p.bias is not None:
         y = y + p.bias.float()
     return y.to(x.dtype)
@@ -403,7 +463,7 @@ def cross_kv(
                 out = _linear_f32(enc, p.weight)  # [B, T, D] f32
                 if p.bias is not None:
                     out = out + p.bias.float()
-                out = out.to(out_dtype or enc.dtype)
+                out = cast_to(out, out_dtype or enc.dtype)
                 return out.transpose(1, 2).reshape(B_, n_head, -1, T_)
 
             ks.append(project(bp.cross.k))
@@ -412,7 +472,7 @@ def cross_kv(
             k = _split_heads(dense(enc, bp.cross.k), n_head)
             v = _split_heads(dense(enc, bp.cross.v), n_head)
             if out_dtype is not None:
-                k, v = k.to(out_dtype), v.to(out_dtype)
+                k, v = cast_to(k, out_dtype), cast_to(v, out_dtype)
             ks.append(k)
             vs.append(v)
     return CrossKV(k=torch.stack(ks), v=torch.stack(vs))
@@ -429,7 +489,9 @@ def cross_kv_into_pool(
     """Project the full-window cross-KV directly into a group pool, one
     layer at a time (transposed layout), so the transient is one layer's
     K or V rather than a dense [L,G,H,Dh,T] copy beside the pool. Columns
-    T..Tp are zeroed; inactive slots keep every bit. Returns the pools."""
+    T..Tp are zeroed; inactive slots keep every bit. The f32 projection is
+    rounded once to the pool's dtype (to float8_e4m3fn as JAX rounds).
+    Returns the pools."""
     n_head = dims.n_text_head
     G, T_, _ = enc.shape
     Tp = pool_k.shape[-1]
@@ -440,10 +502,7 @@ def cross_kv_into_pool(
             if p.bias is not None:
                 out = out + p.bias.float()
             out = out.transpose(1, 2).reshape(G, n_head, -1, T_)
-            out = F.pad(out, (0, Tp - T_)).to(pool.dtype)
-            if keep is not None:
-                out = torch.where(keep, out, pool[layer_i])
-            pool[layer_i] = out
+            write_cast(pool, layer_i, F.pad(out, (0, Tp - T_)), keep)
     return CrossKV(k=pool_k, v=pool_v)
 
 

@@ -12,7 +12,9 @@ multiple of 128; the padding columns are masked out of attention through
 sm_90a, bound through ctypes) for CUDA tensors and raises on anything it does
 not take; for CPU tensors it takes ``xkv_splice_plain``, the plain PyTorch
 twin of the JAX ``xkv_splice_ref``. Either way the pools are updated in place
-(the JAX kernel aliases its donated inputs to its outputs).
+(the JAX kernel aliases its donated inputs to its outputs). Pools are f32,
+bf16 or float8_e4m3fn, tails f32 or bf16; the cast to the pool's dtype is
+JAX's (``ops/f8.to_e4m3fn`` for float8, which the kernel repeats).
 """
 
 from __future__ import annotations
@@ -22,10 +24,12 @@ import ctypes
 import torch
 
 from .cuda_build import KernelError, load
+from .f8 import F8, write_cast
 
 W_SPLICE = 256   # spliced pool columns per inc tick (2 x 128, aligned)
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, F8: 2}
+_TAIL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def splice_dst0(win: torch.Tensor, t_pool: int) -> torch.Tensor:
@@ -35,21 +39,18 @@ def splice_dst0(win: torch.Tensor, t_pool: int) -> torch.Tensor:
 
 
 def xkv_splice_plain(pool_k, pool_v, tail_k, tail_v, win):
-    """Twin of ``xkv_splice_ref``: returns new pools (a select over every
-    pool column) in which each lane with win > 0 holds the tail, cast to the
-    pool's dtype, at columns [dst0, dst0 + W_SPLICE)."""
-    Tp = pool_k.shape[-1]
-    wn = win.long()
-    dst = splice_dst0(wn, Tp)
-    t_idx = torch.arange(Tp, device=pool_k.device)[None, :]
-    sel = (t_idx >= dst[:, None]) & (t_idx < (dst + W_SPLICE)[:, None]) & (wn[:, None] > 0)
-    src = (t_idx - dst[:, None]).clamp(0, W_SPLICE - 1)
-    sel = sel[None, :, None, None, :]
-    idx = src[None, :, None, None, :]
+    """Twin of ``xkv_splice_ref``: returns new pools in which each lane with
+    win > 0 holds the tail, cast to the pool's dtype, at columns
+    [dst0, dst0 + W_SPLICE); every other column keeps its bits."""
+    lanes = (win > 0).nonzero()[:, 0]
+    cols = splice_dst0(win.long(), pool_k.shape[-1])[lanes, None] + torch.arange(W_SPLICE, device=win.device)
+    # [L, G, H, Dh, Tp] indexed at (lane, column): the value is [n, W, L, H, Dh]
+    index = (slice(None), lanes[:, None], ..., cols)
 
     def merge(pool, tail):
-        vals = tail.to(pool.dtype).gather(-1, idx.expand(*tail.shape[:-1], Tp))
-        return torch.where(sel, vals, pool)
+        out = pool.clone()
+        write_cast(out, index, tail[:, lanes].permute(1, 4, 0, 2, 3))
+        return out
 
     return merge(pool_k, tail_k), merge(pool_v, tail_v)
 
@@ -68,8 +69,8 @@ def _check_cuda_args(pool_k, pool_v, tail_k, tail_v, win):
         raise ValueError(f"pool T dim {Tp} must be a multiple of 128 and >= {W_SPLICE}")
     if pool_k.dtype not in _DTYPE_CODE or pool_v.dtype != pool_k.dtype:
         raise TypeError(f"pools must share one of {tuple(_DTYPE_CODE)}; got {pool_k.dtype}, {pool_v.dtype}")
-    if tail_k.dtype not in _DTYPE_CODE or tail_v.dtype != tail_k.dtype:
-        raise TypeError(f"tails must share one of {tuple(_DTYPE_CODE)}; got {tail_k.dtype}, {tail_v.dtype}")
+    if tail_k.dtype not in _TAIL_DTYPES or tail_v.dtype != tail_k.dtype:
+        raise TypeError(f"tails must share one of {_TAIL_DTYPES}; got {tail_k.dtype}, {tail_v.dtype}")
     if tuple(win.shape) != (G,):
         raise ValueError(f"win must be [G]={G}, got {tuple(win.shape)}")
     dev = pool_k.device
@@ -107,7 +108,8 @@ def xkv_splice(pool_k, pool_v, tail_k, tail_v, win):
     with win == 0 are skipped. Returns the (updated) pools.
 
     CUDA tensors launch the hand-written kernel (or raise); CPU tensors take
-    the plain version. ``xkv_splice.launches`` counts kernel launches."""
+    the plain version. ``xkv_splice.launches`` counts kernel launches, and
+    ``xkv_splice.f8_launches`` those into float8 pools."""
     if not pool_k.is_cuda:
         new_k, new_v = xkv_splice_plain(pool_k, pool_v, tail_k, tail_v, win)
         pool_k.copy_(new_k)
@@ -127,7 +129,10 @@ def xkv_splice(pool_k, pool_v, tail_k, tail_v, win):
         why = "unsupported arguments" if rc < 0 else lib.wlk_xkv_splice_error_string(rc).decode()
         raise KernelError(f"xkv_splice launch failed ({rc}): {why}")
     xkv_splice.launches += 1
+    if pool_k.dtype == F8:
+        xkv_splice.f8_launches += 1
     return pool_k, pool_v
 
 
 xkv_splice.launches = 0
+xkv_splice.f8_launches = 0

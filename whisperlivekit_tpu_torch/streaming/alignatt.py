@@ -25,6 +25,7 @@ group's tensors IN PLACE and return them.
 from __future__ import annotations
 
 import logging
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
@@ -35,6 +36,7 @@ from ..models.whisper.dims import ModelDimensions, default_alignment_heads
 from ..models.whisper.tokenizer import Tokenizer
 from ..audio.mel import log_mel_spectrogram, pad_or_trim
 from ..models.whisper import model as wm
+from ..ops.f8 import F8, write_cast
 from ..ops.median import median_filter
 from ..ops.mel_pallas import log_mel_pallas
 
@@ -81,11 +83,11 @@ class AlignAttConfig:
     enc_tail_frames: int = 0      # inc-tick tail (enc frames); 0 = auto by model class
     enc_rewrite_margin: int = 32  # trailing frames re-encoded every tick
     evict_block_s: float = 0.0    # 0 = audio_max_len/2 when enc caching is on
-    xkv_f8: bool = False          # f8 cross-KV storage: not ported yet
+    xkv_f8: bool = False          # legacy tick: store the dense cross-KV in f8_e4m3
     xkv_transposed: bool = True   # [B,H,Dh,T] cross-KV layout
     mel_pallas: bool = False      # fused log-mel kernel (K3) on full-window ticks
     xkv_cache: object = "auto"    # large-form group cross-KV cache: "auto" = d>=1280
-    xkv_cache_dtype: str = "bf16"  # "bf16" = the params dtype; "f8": not ported yet
+    xkv_cache_dtype: str = "bf16"  # group pools: "bf16" = the params dtype; "f8" = f8_e4m3
     xkv_budget_bytes: int = 9 << 30  # device-memory cap for all groups' pools
     anchor_cohorts: int = 1       # stagger group re-anchors over this many sub-epochs
     serving_prefix_cap: int = 0   # pooled-serving decode-prefix cap; 0 = auto (96 with xkv)
@@ -244,12 +246,14 @@ def _tick_core(
     else:
         fire = torch.ones((B,), dtype=torch.bool, device=dev)
 
-    if xkv_f8:
-        raise NotImplementedError("xkv_f8 (f8 cross-KV storage) is not ported yet")
+    # xkv_f8 stores the projection in f8_e4m3 (rounded from f32, as JAX
+    # does); the decode widens it per layer
     if xkv_pre is not None:
         xkv = xkv_pre
     else:
-        xkv = wm.cross_kv(model, enc, dims, transposed=xkv_transposed)
+        xkv = wm.cross_kv(
+            model, enc, dims, out_dtype=F8 if xkv_f8 else None, transposed=xkv_transposed,
+        )
     zeros_b = torch.zeros((B,), dtype=torch.long, device=dev)
     if skv is not None:
         # ---- self-KV pool: R-row refresh instead of prefill ----
@@ -736,15 +740,18 @@ def alignatt_tick_anchor_pooled(
         xkv_pre=fresh, cache_width=skv_k.shape[2], return_state=True,
     )
     # the JAX program scatters with mode="drop" (slot G is out of range);
-    # torch indexing raises there, so pick the real lanes first
+    # torch indexing raises there, so pick the real lanes first. The pools
+    # store the compute-dtype projection cast to their dtype, a layer at a
+    # time (the float8 cast's transients stay one layer's)
     G = xkv_k.shape[1]
     slots = slots.long()
     real = slots < G
     lanes, dst = real.nonzero()[:, 0], slots[real]
     T = fresh.k.shape[-1]
     for pool, src in ((xkv_k, fresh.k), (xkv_v, fresh.v)):
-        pool[:, dst, ..., :T] = src[:, lanes].to(pool.dtype)
-        pool[:, dst, ..., T:] = 0
+        for layer in range(pool.shape[0]):
+            write_cast(pool, (layer, dst, ..., slice(None, T)), src[layer, lanes])
+        write_cast(pool, (slice(None), dst, ..., slice(T, None)), 0)
     skv_k[:, dst] = cache.k[:, lanes].to(skv_k.dtype)
     skv_v[:, dst] = cache.v[:, lanes].to(skv_v.dtype)
     asum[dst] = n_asum[lanes]
@@ -826,8 +833,7 @@ def _count_anchor(reason: str) -> None:
 
 class AlignAttEngine:
     """Shared engine: the model, its device and the static policy config;
-    sessions share it. Configurations that need a module not yet ported
-    raise NotImplementedError here, naming it."""
+    sessions share it."""
 
     PREFIX_BUCKETS = (32, 64, 96, 128, 256, 384)
 
@@ -840,17 +846,12 @@ class AlignAttEngine:
         model_name: Optional[str] = None,
         align_pairs=None,
     ):
-        if cfg.xkv_f8 or cfg.xkv_cache_dtype == "f8":
-            raise NotImplementedError(
-                "f8 cross-KV storage (xkv_f8, xkv_cache_dtype='f8') is not ported yet "
-                "(ROADMAP queue 1 item 9.1)"
-            )
-        if cfg.decoder_type == "beam" and cfg.beam_size > 1:
-            raise NotImplementedError("beam decoding needs streaming/alignatt_beam.py, not ported yet")
         if cfg.xkv_cache == "auto":
             cfg.xkv_cache = bool(dims.n_audio_state >= 1280)
         self.model = model
         self.device = model.device
+        # beam sessions tick one at a time (streaming/alignatt_beam.py)
+        self.beam_lock = threading.Lock()
         self.dims = dims
         self.tokenizer = tokenizer
         self.cfg = cfg

@@ -21,6 +21,7 @@ import torch
 
 from ..models.whisper.dims import ModelDimensions
 from ..audio.mel import N_SAMPLES
+from ..ops.f8 import F8, write_cast
 
 logger = logging.getLogger(__name__)
 
@@ -34,7 +35,9 @@ def _pool_t(dims: ModelDimensions) -> int:
 class XKVGroupPool:
     """Per-lane-group cross-KV cache resident on the device.
 
-    k/v: [L, G, H, Dh, Tp] in ``dtype``. Slot order IS the batch order of
+    k/v: [L, G, H, Dh, Tp] in ``dtype`` (the params' dtype, or
+    float8_e4m3fn under ``xkv_cache_dtype="f8"``: half the bf16 bytes per
+    slot; ``ops/f8.py`` casts as JAX does). Slot order IS the batch order of
     the group's tick programs; sessions pin to a slot for their lifetime and
     a migration forces a re-anchor. Scale-out = more groups, not wider ones.
 
@@ -93,7 +96,7 @@ class XKVGroupPool:
             tensors += [self.skv_k, self.skv_v, self.asum, self.asq, self.alast,
                         self.acount, self.tok]
         for t in tensors:
-            t.zero_()
+            write_cast(t, ..., 0)
 
     @staticmethod
     def row_bytes(
@@ -121,6 +124,14 @@ class XKVGroupPool:
     @property
     def occupancy(self) -> int:
         return self.group_width - len(self._free)
+
+
+def xkv_pool_dtype(engine) -> torch.dtype:
+    """The cross-KV pools' dtype: float8_e4m3fn under
+    ``xkv_cache_dtype="f8"``, else the params' dtype (JAX ``for_engine``)."""
+    if getattr(engine.cfg, "xkv_cache_dtype", "bf16") == "f8":
+        return F8
+    return engine.model.dtype
 
 
 class XKVAllocator:
@@ -169,9 +180,10 @@ class XKVAllocator:
         self-KV width = serving prefix cap + commit budget + step budget +
         1 legit slot + 1 scratch row. The cap (not the top prefix bucket)
         sizes the pool, so the decode's per-step work over the cache stays
-        proportional to the prefixes pooled sessions actually carry."""
+        proportional to the prefixes pooled sessions actually carry. The
+        cross-KV dtype is ``xkv_pool_dtype``'s."""
         cfg = engine.cfg
-        kw.setdefault("dtype", engine.model.dtype)
+        kw.setdefault("dtype", xkv_pool_dtype(engine))
         kw.setdefault("skv_dtype", engine.model.dtype)
         kw.setdefault("device", engine.device)
         return cls(

@@ -692,12 +692,17 @@ class AlignAttSession:
         ti = self.prepare_tick(is_last)
         if ti is None:
             return []
-        from .dispatch import run_tick_batch
+        if self.cfg.decoder_type == "beam" and self.cfg.beam_size > 1:
+            from .alignatt_beam import run_tick_batch_beam
 
-        outs = run_tick_batch(
-            self.engine, [ti], self.tokenizer, pool=self.pool,
-            enc_pool=self.enc_pool, xkv=self.xkv_alloc,
-        )
+            outs = run_tick_batch_beam(self.engine, [ti], self.tokenizer, self.cfg.beam_size)
+        else:
+            from .dispatch import run_tick_batch
+
+            outs = run_tick_batch(
+                self.engine, [ti], self.tokenizer, pool=self.pool,
+                enc_pool=self.enc_pool, xkv=self.xkv_alloc,
+            )
         return self.finish_tick(ti, outs[0])
 
     def finish_tick(self, ti: "TickInputs", out: "TickOutputs") -> List[ASRToken]:
