@@ -87,7 +87,25 @@ Phases (each prints lines; any failure raises and exits non-zero):
              Checks every answer (200s, clean closes), that the two json
              posts agree, that no tick failed and no group recovered, and
              that K1 (wgmma), K2 and K3 (bulk route) launched.
-9. kernels — the large form's kernels at the shapes its engines give them:
+9. la      — offline decoding and the re-transcription policies: decode at
+             temperature 0, beam_decode at 4 beams and transcribe with word
+             timestamps over two windows, in f32 at base widths with 2+2
+             layers, on the card (K1's f32 body) against the CPU (equal
+             tokens, segments and word times); then ``random:base`` bf16
+             under ``backend_policy="localagreement"``, all at once:
+             AudioProcessor sessions and one ``WS /asr`` stream fed in real
+             time, one session of a ``windowed`` engine, one ``POST
+             /v1/audio/transcriptions`` and the CLI's ``transcribe
+             --backend-policy localagreement`` in this process. Checks
+             words on every session after its final flush (and logs how
+             many each had committed before it), the REST status and the
+             CLI's return code, that K1 launched; prints the transcribe
+             calls' ms, decode attempts and steps per window, the ms of a
+             greedy step and the device's busy share over one call
+             (torch.profiler). Then K1 in bf16 against its plain version at
+             every (S, T) that run launched, failing on any it did not
+             check.
+10. kernels — the large form's kernels at the shapes its engines give them:
              K1 at the encoder's two shapes, every prefix bucket over the
              dense cross-KV and over the pool, and both refresh widths, and
              at every (S, T) the large, f8 and load runs launched; K2
@@ -218,6 +236,7 @@ class LogWatch(logging.Handler):
         "Initializing RANDOM weights",  # the smoke runs random weights
         "[SimulStreaming guard]",       # policy reset on a looping hypothesis
         "Audio buffer too large",       # backpressure when a feed outruns its ticks
+        "No ASR output for",            # LocalAgreement's reset of a buffer that committed nothing
     )
 
     def __init__(self):
@@ -1986,6 +2005,346 @@ def phase_load(card: str) -> dict:
     return run
 
 
+LA_SESSIONS = 4      # AudioProcessor sessions in process, plus one over WS /asr
+LA_SECONDS = 12.0
+# the serving engines' transcribe_kargs. Random weights score far under the
+# -1 log-probability threshold, so the default ladder decodes every window
+# six times (temperatures 0 to 1), and they rarely sample end-of-text, so
+# each attempt runs the full 224 steps; their random timestamps also cut a
+# 12 s buffer into ~5 short windows. A call then took 8.7-10.6 s alone on
+# an H100 at temperature 0. Real weights rarely fall
+# back and stop a window of speech at its last word, ~3 tokens a second:
+# the sessions run temperature 0 and at most 64 steps a window
+LA_PINNED = dict(temperature=0.0, sample_len=64)
+LA_PROFILE_SECONDS = 4.0  # the profiled call's audio (parsing a trace costs host time per kernel)
+
+
+def phase_reference_la() -> None:
+    """Offline decoding in f32 on the card (K1's f32 body in every encode)
+    against the CPU, at base widths with 2+2 layers, the weights from one
+    seed: ``decode`` at temperature 0 and ``beam_decode`` at 4 beams on one
+    window, then ``transcribe`` with word timestamps over 40 s (two
+    windows). Tokens, segments and word times must be equal; avg_logprob
+    and word probabilities within 1e-4. On the card, sampling at
+    temperature 0.6 with best_of 2 must draw the same tokens twice (one
+    seed) and keep the timestamp rules."""
+    import dataclasses
+
+    from whisperlivekit_tpu_torch.audio.mel import N_SAMPLES, pad_or_trim
+    from whisperlivekit_tpu_torch.decoding.options import DecodingOptions
+    from whisperlivekit_tpu_torch.decoding.task import WhisperDecoder
+    from whisperlivekit_tpu_torch.decoding.transcribe import transcribe
+    from whisperlivekit_tpu_torch.engine.core import MODEL_DIMS
+    from whisperlivekit_tpu_torch.models.whisper import model as wm
+
+    dims = dataclasses.replace(MODEL_DIMS["base"], n_audio_layer=2, n_text_layer=2)
+    audio = speech_pcm(40.0, seed=60).astype(np.float32) / 32768.0
+    mel = pad_or_trim(log_mel_spectrogram(torch.from_numpy(audio[: 16000 * 9]), padding=N_SAMPLES), 3000)
+    res, launched = {}, 0
+    for side, dev in (("card", CARD), ("cpu", "cpu")):
+        model = wm.init_params(dims, torch.Generator().manual_seed(2), torch.float32, dev)
+        dec = WhisperDecoder(model, dims)
+        before = flash_encoder_attn.launches
+        greedy = dec.decode(mel, DecodingOptions(language="en", sample_len=64))[0]
+        beam = dec.decode(mel, DecodingOptions(language="en", sample_len=24, beam_size=4))[0]
+        out = transcribe(dec, audio, language="en", temperature=0.0, word_timestamps=True, sample_len=64)
+        if side == "card":
+            launched = flash_encoder_attn.launches - before
+            # sampling from the card's generator: the same draws per seed
+            opts = DecodingOptions(language="en", sample_len=32, temperature=0.6, best_of=2)
+            sampled = [dec.decode(mel, opts)[0].tokens for _ in range(2)]
+            ts_begin = dec.tokenizer_for("en", "transcribe").timestamp_begin
+        res[side] = (greedy, beam, out)
+    (gg, gb, gt), (cg, cb, ct) = res["card"], res["cpu"]
+    seg = lambda out: [(s["seek"], s["start"], s["end"], s["tokens"]) for s in out["segments"]]  # noqa: E731
+    words = lambda out: [(w["word"], w["start"], w["end"]) for s in out["segments"] for w in s["words"]]  # noqa: E731
+    probs = lambda out: [w["probability"] for s in out["segments"] for w in s["words"]]  # noqa: E731
+    lp_err = max(abs(gg.avg_logprob - cg.avg_logprob), abs(gb.avg_logprob - cb.avg_logprob),
+                 *(abs(a["avg_logprob"] - b["avg_logprob"]) for a, b in zip(gt["segments"], ct["segments"])))
+    p_err = max((abs(a - b) for a, b in zip(probs(gt), probs(ct))), default=0.0)
+    stamps = [t for t in sampled[0] if t >= ts_begin]
+    sampled_ok = sampled[0] == sampled[1] and sampled[0][:1] >= [ts_begin] and stamps == sorted(stamps)
+    ok = (gg.tokens == cg.tokens and gb.tokens == cb.tokens and seg(gt) == seg(ct)
+          and words(gt) == words(ct) and lp_err <= 1e-4 and p_err <= 1e-4 and launched > 0 and sampled_ok)
+    log("reference", model="base f32 random, 2+2 layers", calls="decode t=0, beam 4, transcribe 40 s words",
+        greedy_tokens=len(gg.tokens), beam_tokens=len(gb.tokens), segments=len(gt["segments"]),
+        windows=sorted({s["seek"] for s in gt["segments"]}), words=len(words(gt)),
+        avg_logprob_err=lp_err, word_prob_err=p_err, k1_launches=launched,
+        sampled_t06_best_of_2=dict(tokens=len(sampled[0]), same_twice=sampled[0] == sampled[1]), ok=ok)
+    if not ok:
+        raise AssertionError(f"the card's offline decoding disagrees with the CPU: greedy {gg.tokens[:8]} / "
+                             f"{cg.tokens[:8]}, beam {gb.tokens[:8]} / {cb.tokens[:8]}, "
+                             f"words {words(gt)[:4]} / {words(ct)[:4]}")
+
+
+class LAInstrumented:
+    """Wraps, for the LocalAgreement run: each ``transcribe`` call (host
+    wall), each ``WhisperDecoder.decode`` call (its temperature and its
+    decode steps, counted per thread from the S=1 ``wm.decode`` calls), and
+    each processor's ``finish`` (the words it had committed before its final
+    flush). Restores everything on exit."""
+
+    def __init__(self):
+        import threading
+
+        from whisperlivekit_tpu_torch.decoding import task as T
+        from whisperlivekit_tpu_torch.decoding import transcribe as X
+        from whisperlivekit_tpu_torch.streaming import local_agreement as LA
+        from whisperlivekit_tpu_torch.streaming import windowed as W
+
+        self.T, self.X, self.procs = T, X, (LA.OnlineASRProcessor, W.WindowedStreamingProcessor)
+        self.call_ms, self.attempts, self.committed_before_flush = [], [], []
+        self.tls = threading.local()
+
+    def __enter__(self):
+        T, X, tls = self.T, self.X, self.tls
+        self.real = (X.transcribe, T.WhisperDecoder.decode, T.wm.decode)
+        self.real_finish = [cls.__dict__["finish"] for cls in self.procs]
+        real_tr, real_dec, real_step = self.real
+
+        def transcribe(*a, **k):
+            t = time.perf_counter()
+            out = real_tr(*a, **k)
+            self.call_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        def decode(dec, mel, options=T.DecodingOptions(), enc=None):
+            tls.steps = 0
+            out = real_dec(dec, mel, options, enc)
+            self.attempts.append((options.temperature, tls.steps))
+            return out
+
+        def step(model, tokens, *a, **k):
+            if tokens.shape[1] == 1:
+                tls.steps = getattr(tls, "steps", 0) + 1
+            return real_step(model, tokens, *a, **k)
+
+        def finishing(real_finish):
+            def finish(proc):
+                self.committed_before_flush.append((type(proc).__name__, len(proc.committed)))
+                return real_finish(proc)
+            return finish
+
+        X.transcribe, T.WhisperDecoder.decode, T.wm.decode = transcribe, decode, step
+        for cls, real in zip(self.procs, self.real_finish):
+            cls.finish = finishing(real)
+        return self
+
+    def __exit__(self, *exc):
+        X, T = self.X, self.T
+        X.transcribe, T.WhisperDecoder.decode, T.wm.decode = self.real
+        for cls, real in zip(self.procs, self.real_finish):
+            cls.finish = real
+
+
+async def _main_path_la(wav_path: str) -> dict:
+    """``random:base`` bf16 under ``backend_policy="localagreement"``, all at
+    once: AudioProcessor sessions and one ``WS /asr`` stream fed in real
+    time, one session of a second engine under ``"windowed"``, one ``POST
+    /v1/audio/transcriptions`` and the CLI's ``transcribe --backend-policy
+    localagreement`` (in a worker thread, on a third engine built ahead
+    into the TestHarness cache the CLI reads). Every engine's backend at
+    ``LA_PINNED``, and all three share one backend lock: one decode at a
+    time on the card (three locks convoy as five unlocked sessions do)."""
+    import aiohttp
+    import contextlib
+    import io
+    from aiohttp import web
+
+    from whisperlivekit_tpu_torch import cli
+    from whisperlivekit_tpu_torch.cli_args import parse_args
+    from whisperlivekit_tpu_torch.engine.core import TranscriptionEngine, WLKConfig
+    from whisperlivekit_tpu_torch.harness import harness
+    from whisperlivekit_tpu_torch.server.app import create_app
+    from whisperlivekit_tpu_torch.session.processor import AudioProcessor
+
+    kw = dict(model_size="random:base", lan="en", pcm_input=True, vac=False, param_dtype="bfloat16",
+              log_level="WARNING")
+    cli_argv = ["transcribe", wav_path, "--model-size", "random:base", "--lan", "en", "--no-vac",
+                "--backend-policy", "localagreement"]
+    cli_kw = cli._harness_kwargs(parse_args(cli_argv[2:]))
+    config = WLKConfig(backend_policy="localagreement", **kw)
+    t0 = time.perf_counter()
+    engines = []
+    for make in (lambda: TranscriptionEngine(config),
+                 lambda: TranscriptionEngine(WLKConfig(backend_policy="windowed", **kw)),
+                 lambda: TranscriptionEngine(**cli_kw)):
+        TranscriptionEngine.reset()
+        e = make()
+        if e.device.type != "cuda" or type(e.asr).__name__ != "LocalAgreementASR":
+            raise AssertionError(f"engine on {e.device} with {type(e.asr).__name__}")
+        e.asr.asr.transcribe_kargs.update(LA_PINNED)
+        e.asr.asr._session_lock = engines[0].asr.asr._session_lock if engines else e.asr.asr._session_lock
+        engines.append(e)
+    TranscriptionEngine.reset()
+    engine, wengine, cli_engine = engines
+    harness.reset_engine_cache()
+    harness._engine_cache[harness._cache_key(cli_kw)] = cli_engine
+    wengine.warmup_synthetic()
+    runner = web.AppRunner(create_app(config, engine=engine))
+    await runner.setup()  # startup runs the engine's warmup transcription
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    host, port = runner.addresses[0][:2]
+    setup_s = time.perf_counter() - t0
+
+    def run_cli():
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(list(cli_argv))
+        return rc, out.getvalue().strip(), time.perf_counter() - t
+
+    try:
+        with LAInstrumented() as ins:
+            _reset_kernel_counts()  # the LocalAgreement path's run counts from here
+            t1 = time.perf_counter()
+            pcms = [speech_pcm(LA_SECONDS, seed=50 + s) for s in range(LA_SESSIONS + 2)]
+            procs = [AudioProcessor(transcription_engine=engine) for _ in range(LA_SESSIONS)]
+            wproc = AudioProcessor(transcription_engine=wengine)
+            async with aiohttp.ClientSession() as http:
+                out = await asyncio.gather(
+                    *(_feed_processor(p, pcm) for p, pcm in zip(procs, pcms)),
+                    _feed_processor(wproc, pcms[LA_SESSIONS]),
+                    _feed_websocket(f"http://{host}:{port}/asr", pcms[LA_SESSIONS + 1]),
+                    _post_transcription(http, f"http://{host}:{port}/v1/audio/transcriptions",
+                                        _wav_bytes(speech_pcm(LA_SECONDS, seed=58)), "json"),
+                    asyncio.to_thread(run_cli),
+                )
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            counts = _kernel_counts()
+        cli_served = [e is cli_engine for e in harness._engine_cache.values()]
+        harness.reset_engine_cache()
+    finally:
+        await runner.cleanup()
+        TranscriptionEngine.reset()
+    return dict(texts=out[: LA_SESSIONS + 2], rest=out[-2], cli=out[-1], wall=wall, setup_s=setup_s,
+                counts=counts, call_ms=ins.call_ms, attempts=ins.attempts,
+                committed_before_flush=ins.committed_before_flush, engine=engine, cli_served=cli_served)
+
+
+def _la_solo(engine) -> dict:
+    """One window alone on the LocalAgreement engine: the ms of a greedy
+    decode step (a 30 s window at temperature 0, the encoding done first),
+    then one ``transcribe`` call of LA_PROFILE_SECONDS at ``LA_PINNED``,
+    traced by torch.profiler (device activity only): the device's busy
+    time (its kernels' summed device time) against the same call's wall
+    untraced."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisperlivekit_tpu_torch.audio.mel import N_SAMPLES, pad_or_trim
+    from whisperlivekit_tpu_torch.decoding.options import DecodingOptions
+
+    asr = engine.asr.asr
+    dec = asr.decoder
+    audio = speech_pcm(30.0, seed=59).astype(np.float32) / 32768.0
+    mel = pad_or_trim(log_mel_spectrogram(torch.from_numpy(audio).cuda(), padding=N_SAMPLES), 3000)
+    with LAInstrumented() as ins:
+        enc = dec.encode(mel)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dec.decode(None, DecodingOptions(language="en"), enc=enc)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t) * 1e3
+        steps = ins.attempts[-1][1]
+        clip = audio[: int(16000 * LA_PROFILE_SECONDS)]
+        asr.transcribe(clip)  # untraced
+        torch.cuda.synchronize()
+        untraced_ms = ins.call_ms[-1]
+        n0 = len(ins.attempts)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            asr.transcribe(clip)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t) * 1e3
+        attempts = ins.attempts[n0:]
+    ev = prof.key_averages()
+    kernels = [e for e in ev if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    # the host's waits on the device: the greedy loop's finished.all() each
+    # step, and each window's reads of tokens and scores
+    waits = [e for e in ev if e.key in ("cudaStreamSynchronize", "cudaMemcpyAsync", "cudaDeviceSynchronize")]
+    return dict(decode_ms=decode_ms, steps=steps, ms_per_step=decode_ms / max(steps, 1),
+                untraced_ms=untraced_ms, traced_ms=traced_ms, busy_ms=busy_ms,
+                busy_share=busy_ms / untraced_ms, busy_share_traced=busy_ms / traced_ms,
+                kernels=sum(e.count for e in kernels), launches=launches, attempts=attempts,
+                waits=sum(e.count for e in waits), wait_ms=sum(e.cpu_time_total for e in waits) / 1e3)
+
+
+def phase_la() -> dict:
+    """Offline decoding and the LocalAgreement / windowed policies: the card
+    against the CPU, then ``random:base`` bf16 serving every entry point at
+    once under ``backend_policy="localagreement"``."""
+    import gc
+    import tempfile
+    from pathlib import Path
+
+    from whisperlivekit_tpu_torch.harness.vocab import install_standin_vocab
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="wlk_vocab_") as vocab_dir:
+        install_standin_vocab(vocab_dir)
+        phase_reference_la()
+        wav_path = Path(vocab_dir) / "speech.wav"
+        wav_path.write_bytes(_wav_bytes(speech_pcm(LA_SECONDS, seed=57)))
+        run = asyncio.run(_main_path_la(str(wav_path)))
+        solo = _la_solo(run.pop("engine"))
+    counts, ms = run["counts"], run["call_ms"]
+    words = [sum(len(t.split()) for t, _ in lines) for lines in run["texts"]]
+    status, body, rest_s = run["rest"]
+    rest_text = json.loads(body).get("text", "") if status == 200 else ""
+    cli_rc, cli_text, cli_s = run["cli"]
+    windows = sum(1 for t, _ in run["attempts"] if t == 0)
+    steps = sum(s for _, s in run["attempts"])
+    log("la", model="random:base bf16", policy="localagreement", sessions=len(words),
+        windowed_sessions=1, audio_s_each=LA_SECONDS, pace=PACE, words_per_session=words,
+        committed_before_final_flush=run["committed_before_flush"], wall_s=round(run["wall"], 3),
+        setup_s=round(run["setup_s"], 3))
+    log("la", endpoint="'rest json'", status=status, wall_s=round(rest_s, 3), words=len(rest_text.split()),
+        text=repr(rest_text[:120]))
+    log("la", endpoint="'cli transcribe'", rc=cli_rc, wall_s=round(cli_s, 3), words=len(cli_text.split()),
+        text=repr(cli_text[:120]))
+    log("la", transcribe_calls=len(ms), transcribe_ms_p50=_quantile(ms, 0.5), transcribe_ms_p95=_quantile(ms, 0.95),
+        windows=windows, decode_attempts=len(run["attempts"]),
+        attempts_per_window=round(len(run["attempts"]) / max(windows, 1), 2),
+        decode_steps_per_window=round(steps / max(windows, 1), 1),
+        attempts_by_temperature=dict(Counter(t for t, _ in run["attempts"])))
+    log("la", solo="30 s window, t=0", decode_ms=round(solo["decode_ms"], 1), steps=solo["steps"],
+        ms_per_greedy_step=round(solo["ms_per_step"], 3))
+    log("la", solo=f"transcribe {LA_PROFILE_SECONDS} s", untraced_ms=round(solo["untraced_ms"], 1),
+        traced_ms=round(solo["traced_ms"], 1), device_busy_ms=round(solo["busy_ms"], 1),
+        busy_share=round(solo["busy_share"], 4), busy_share_traced=round(solo["busy_share_traced"], 4),
+        kernels=solo["kernels"], launches=solo["launches"], attempts=solo["attempts"],
+        host_waits=solo["waits"], host_wait_ms_traced=round(solo["wait_ms"], 1))
+    log("la", kernel="flash_encoder_attn", launches=counts["flash_encoder_attn"],
+        launches_by_SxT={f"{s}x{t}": n for (s, t), n in sorted(counts["k1_shapes"].items())},
+        per_window=round(counts["flash_encoder_attn"] / max(windows, 1), 2))
+    _check_k1_bodies("la", counts)
+    if not all(words):
+        raise AssertionError(f"a session got no words: {words}")
+    if status != 200 or cli_rc != 0 or run["cli_served"] != [True]:
+        raise AssertionError(f"REST {status}, CLI rc {cli_rc}, the CLI's engines {run['cli_served']}")
+    if not counts["flash_encoder_attn"]:
+        raise AssertionError("K1 never launched in the la phase")
+    return run
+
+
+def phase_kernels_la(launched: dict) -> dict:
+    """K1 in bf16 at every (S, T) the la phase launched it: each window's
+    encode (and each word-timestamp alignment's) at one lane. Fails on a
+    launched (S, T) it did not check. Returns per-case records."""
+    records = {}
+    for S, T in sorted(launched):
+        if (S, T) != (1500, 1500):
+            raise AssertionError(f"the la run launched K1 at an unchecked shape {(S, T)}")
+        records[(S, T)] = _check_k1("la encoder full window", "base", S, T, T, False, torch.bfloat16, 1, H)
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--k3-ab", metavar="LOG_MEL_CU", default=None,
@@ -2015,6 +2374,8 @@ def main(argv=None) -> int:
     beam = timed("beam", phase_beam)
     beam_records = timed("kernels_beam", phase_kernels_beam, beam["counts"]["k1_shapes"])
     load = timed("load", phase_load, card)
+    la = timed("la", phase_la)
+    la_records = timed("kernels_la", phase_kernels_la, la["counts"]["k1_shapes"])
     large_records = timed("kernels_large", phase_kernels_large,
                           {"large-v3": large["geom"], "large-v3 f8": f8["geom"], LOAD_MODEL: load["geom"]},
                           Counter(large["counts"]["k1_shapes"]) + Counter(f8["counts"]["k1_shapes"])
@@ -2039,6 +2400,7 @@ def main(argv=None) -> int:
     k1_errs += [r["max_abs_err"] for key, r in large_records.items()
                 if key[0] == "flash_encoder_attn" and key[3] == "bfloat16"]
     k1_errs += [r["max_abs_err"] for r in beam_records.values()]
+    k1_errs += [r["max_abs_err"] for r in la_records.values()]
     k1 = large_records[("flash_encoder_attn", 1500, 1500, "bfloat16")]
     G = large["geom"]["group_width"]
     L = large["geom"]["n_text_layer"]
@@ -2051,7 +2413,8 @@ def main(argv=None) -> int:
                                        "large": large["counts"]["flash_encoder_attn"],
                                        "f8": f8["counts"]["flash_encoder_attn"],
                                        "beam": beam["counts"]["flash_encoder_attn"],
-                                       "load": load["counts"]["flash_encoder_attn"]},
+                                       "load": load["counts"]["flash_encoder_attn"],
+                                       "la": la["counts"]["flash_encoder_attn"]},
                 "xkv_splice": {"large": large["counts"]["xkv_splice"], "f8": f8["counts"]["xkv_splice"],
                                "load": load["counts"]["xkv_splice"]},
                 "log_mel_pallas": {"front": front["counts"]["log_mel_pallas"],

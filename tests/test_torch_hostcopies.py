@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's host-only modules (config,
 CLI, tokenizer, session plane, VAD, web page, native PCM runtime, audio IO,
-WER and normalizers, the Deepgram adapter, the WS test client) against
+WER and normalizers, the Deepgram adapter, the WS test client, the decoding
+options and writers, DTW, the windowed policy and the session proxy) against
 the modules they were copied from: the same public names, and one sample of
 behaviour each that agrees on the same inputs."""
 
@@ -21,6 +22,8 @@ MODULES = (
     "session.alignment", "session.metrics", "session.diff",
     "server.web", "native", "audio.io", "harness.wer", "harness.normalizers",
     "server.deepgram_compat", "test_client",
+    "decoding.options", "decoding.writers", "ops.dtw", "streaming.windowed",
+    "streaming.session_proxy",
 )
 
 
@@ -160,7 +163,61 @@ def _test_client(m):
     return r.lines, r.text, r.finished
 
 
+def _options(m):
+    opts = m.DecodingOptions(temperature=0.2, prompt="x").with_(best_of=2)
+    return vars(opts), vars(m.DecodingResult()).keys(), [m.compression_ratio(s) for s in ("", "ab" * 40)]
+
+
+def _writers(m):
+    import io
+
+    result = {"segments": [{"start": 0.0, "end": 61.257, "text": " a --> b\tc"}]}
+    out = []
+    for fmt in sorted(m.WRITERS):
+        buf = io.StringIO()
+        m.get_writer(fmt)(result, buf)
+        out.append(buf.getvalue())
+    return out, m.format_timestamp(3725.2504, True, ",")
+
+
+def _dtw(m):
+    cost = np.round(np.random.default_rng(3).standard_normal((6, 40)))
+    return [a.tolist() for a in m.dtw(cost)]
+
+
+def _windowed(m):
+    timed = importlib.import_module(m.__name__.rsplit(".", 2)[0] + ".timed")
+
+    class ASR:
+        sep, tokenizer = " ", None
+
+        def transcribe(self, audio, init_prompt=""):
+            return [timed.ASRToken(start=i, end=i + 1, text=f"w{i}") for i in range(6)]
+
+        def ts_words(self, res):
+            return res
+
+    p = m.WindowedStreamingProcessor(ASR(), window_sec=4.0, hold_back_words=2)
+    p.insert_audio_chunk(np.zeros(16000 * 6, np.float32))
+    out = [p.process_iter(), p.process_iter(), p.finish()]
+    return [([t.text for t in toks], round(upto, 3)) for toks, upto in out], p.buffer_time_offset
+
+
+def _session_proxy(m):
+    class ASR:
+        original_language = "en"
+
+        def transcribe(self, audio, init_prompt=""):
+            return self.original_language, init_prompt
+
+    asr = ASR()
+    return m.SessionASRProxy(asr, "fr").transcribe(None, "p"), m.SessionASRProxy(asr, "auto").transcribe(None), \
+        asr.original_language
+
+
 SAMPLES = {
+    "decoding.options": _options, "decoding.writers": _writers, "ops.dtw": _dtw,
+    "streaming.windowed": _windowed, "streaming.session_proxy": _session_proxy,
     "audio.io": _io, "harness.wer": _wer, "harness.normalizers": _normalizers,
     "server.deepgram_compat": _deepgram, "test_client": _test_client,
     "config": _config, "cli_args": _cli_args, "timed": _timed, "models.whisper.dims": _dims,

@@ -293,7 +293,10 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr[-2000:]
     imported = set(proc.stdout.split())
     for name in ("engine.core", "session.processor", "server.app", "streaming.dispatch",
-                 "ops.mel_pallas", "decoding.task", "config", "native", "server.web"):
+                 "ops.mel_pallas", "decoding.task", "config", "native", "server.web",
+                 "decoding.options", "decoding.writers", "decoding.beam", "decoding.timing",
+                 "decoding.transcribe", "ops.dtw", "streaming.local_agreement",
+                 "streaming.windowed", "streaming.session_proxy"):
         assert f"whisperlivekit_tpu_torch.{name}" in imported, name
 
 
@@ -330,7 +333,8 @@ def _port_tokenizer(language="en"):
 
 def test_detect_language_matches_jax(tok):
     """One decoder step from [sot] over the same encoder features: the same
-    codes, and every language's probability within 1e-5."""
+    codes, and every language's probability within 1e-5; ``decode`` without
+    a language detects the same one and decodes the same tokens."""
     from whisperlivekit_tpu.decoding.task import WhisperDecoder as JD
     from whisperlivekit_tpu_torch.decoding.task import WhisperDecoder as TD
 
@@ -344,8 +348,13 @@ def test_detect_language_matches_jax(tok):
     for t, j in zip(tprobs, jprobs):
         assert list(t) == list(j)
         np.testing.assert_allclose(list(t.values()), list(j.values()), rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="7.2"):
-        TD(tm, DIMS).decode(None)
+    from whisperlivekit_tpu.decoding.options import DecodingOptions as JO
+    from whisperlivekit_tpu_torch.decoding.options import DecodingOptions as TO
+
+    jres = JD(jp, DIMS).decode(None, JO(sample_len=4), enc=jnp.asarray(enc))
+    tres = TD(tm, DIMS).decode(None, TO(sample_len=4), enc=torch.from_numpy(enc))
+    assert [r.language for r in tres] == [r.language for r in jres] == [jcodes[0]] * 3
+    assert [r.tokens for r in tres] == [r.tokens for r in jres]
 
 
 def test_auto_language_sessions_match_jax(tok):

@@ -1,5 +1,6 @@
 """TranscriptionEngine: the shared, load-once model state + per-session
-factories (port of whisperlivekit_tpu/engine/core.py, SimulStreaming only).
+factories (port of whisperlivekit_tpu/engine/core.py: the SimulStreaming,
+LocalAgreement and windowed policies).
 
 Thread-safe double-checked-lock singleton (its own, separate from the JAX
 package's) holding the Whisper module on its device, the VAD model and the
@@ -12,8 +13,8 @@ seeded ``torch.Generator`` (the numbers differ from the JAX package's
 ``params_from_jax_numpy`` or load one checkpoint in both packages).
 
 What is not ported yet raises NotImplementedError naming the module: the
-LocalAgreement, windowed, cloud, Qwen3 and Voxtral backends, the batched
-JAX VAD, diarization and translation.
+cloud, Qwen3 and Voxtral backends, the batched JAX VAD, diarization and
+translation.
 """
 
 from __future__ import annotations
@@ -134,6 +135,30 @@ class SimulStreamingASR:
         )
 
 
+class LocalAgreementASR:
+    """Backend holder for the LocalAgreement and windowed policies — wraps
+    the batch decoder (``decoding/task.py``) in ``TorchWhisperASR``."""
+
+    sep = " "
+
+    def __init__(self, config: WLKConfig, model, dims: ModelDimensions, model_name):
+        from ..decoding.task import WhisperDecoder
+        from ..streaming.local_agreement import TorchWhisperASR
+
+        self.config = config
+        self.dims = dims
+        self.decoder = WhisperDecoder(model, dims)
+        self.asr = TorchWhisperASR(
+            self.decoder,
+            language=config.lan,
+            model_name=model_name,
+            buffer_trimming=config.buffer_trimming,
+            buffer_trimming_sec=config.buffer_trimming_sec,
+            confidence_validation=config.confidence_validation,
+            beam_size=config.beams if config.beams > 1 else None,
+        )
+
+
 class TranscriptionEngine:
     """Thread-safe singleton (reference core.py:37-79)."""
 
@@ -184,24 +209,23 @@ class TranscriptionEngine:
                     f"backend {config.backend!r} (streaming/qwen3_*, models/voxtral*, "
                     "streaming/cloud_backend.py) is not ported yet"
                 )
-            if config.backend_policy in ("localagreement", "windowed"):
-                raise NotImplementedError(
-                    f"backend_policy {config.backend_policy!r} needs "
-                    "streaming/local_agreement.py / windowed.py, not ported yet"
-                )
             model, dims, name = load_whisper_params(config, self.device)
-            self.asr = SimulStreamingASR(config, model, dims, name)
-            if config.scheduler:
-                from .scheduler import BatchScheduler
+            if config.backend_policy in ("localagreement", "windowed"):
+                self.asr = LocalAgreementASR(config, model, dims, name)
+            else:
+                self.asr = SimulStreamingASR(config, model, dims, name)
+                if config.scheduler:
+                    from .scheduler import BatchScheduler
 
-                self.scheduler = BatchScheduler(
-                    self.asr.engine,
-                    max_lanes=config.max_batch_sessions,
-                    incremental_encode=getattr(config, "incremental_encode", True),
-                )
+                    self.scheduler = BatchScheduler(
+                        self.asr.engine,
+                        max_lanes=config.max_batch_sessions,
+                        incremental_encode=getattr(config, "incremental_encode", True),
+                    )
             logger.info(
-                "Loaded whisper %s (%d-layer enc / %d-layer dec, %s) on %s",
+                "Loaded whisper %s (%d-layer enc / %d-layer dec, %s) on %s policy=%s",
                 name, dims.n_audio_layer, dims.n_text_layer, config.param_dtype, self.device,
+                config.backend_policy,
             )
 
         if config.vac:
@@ -252,8 +276,9 @@ class TranscriptionEngine:
         if self.asr is None:
             return
         proc = online_factory(self.config, self.asr, scheduler=self.scheduler)
-        proc.warmup(np.zeros(16000, np.float32))
-        proc.close()  # release the pooled lanes the warmup session held
+        _warm(proc, np.zeros(16000, np.float32))
+        if hasattr(proc, "close"):
+            proc.close()  # release the pooled lanes the warmup session held
         logger.info("Engine warmup complete")
 
     def warmup(self, path: str) -> None:
@@ -262,8 +287,18 @@ class TranscriptionEngine:
         from ..audio.io import load_audio
 
         audio = load_audio(path)[: 16000 * 5]
-        online_factory(self.config, self.asr).warmup(audio)
+        _warm(online_factory(self.config, self.asr), audio)
         logger.info("Warmup inference OK")
+
+
+def _warm(proc, audio) -> None:
+    """One inference over ``audio``: the AlignAtt processor's own warmup, or
+    one re-transcription tick of a LocalAgreement / windowed processor."""
+    if hasattr(proc, "warmup"):
+        proc.warmup(audio)
+    else:
+        proc.insert_audio_chunk(audio, len(audio) / 16000)
+        proc.process_iter()
 
 
 # ---------------------------------------------------------------------------
@@ -272,6 +307,25 @@ class TranscriptionEngine:
 
 
 def online_factory(config: WLKConfig, asr, language: Optional[str] = None, scheduler=None):
+    if isinstance(asr, LocalAgreementASR):
+        from ..streaming.local_agreement import OnlineASRProcessor
+        from ..streaming.windowed import WindowedStreamingProcessor
+
+        backend = asr.asr
+        if language and language != config.lan:
+            from ..streaming.session_proxy import SessionASRProxy
+
+            backend = SessionASRProxy(backend, language)
+        if config.backend_policy == "windowed":
+            return WindowedStreamingProcessor(
+                backend,
+                hold_back_words=getattr(config, "holdback_words", 6),
+                chunk_sec=getattr(config, "qwen3_chunk_sec", 0.0),
+                right_context_ms=getattr(config, "qwen3_right_context_ms", 0),
+                context=getattr(config, "qwen3_context", ""),
+            )
+        return OnlineASRProcessor(backend)
+
     from ..streaming.simul_processor import SimulStreamingOnlineProcessor
 
     if not isinstance(asr, SimulStreamingASR):

@@ -301,7 +301,7 @@ class TestHarness:
         from ..engine.core import TranscriptionEngine
         from ..session.processor import AudioProcessor
 
-        cache_key = tuple(sorted((k, repr(v)) for k, v in self._engine_kwargs.items()))
+        cache_key = _cache_key(self._engine_kwargs)
         if cache_key not in _engine_cache:
             TranscriptionEngine.reset()
             _engine_cache[cache_key] = TranscriptionEngine(**self._engine_kwargs)
@@ -452,6 +452,11 @@ class TestHarness:
     async def cut(self, timeout: float = 5.0) -> TestState:
         """Abrupt stop: EOF with a short flush window; partial results OK."""
         return await self.finish(timeout=timeout)
+
+
+def _cache_key(engine_kwargs: Dict[str, Any]) -> tuple:
+    """The ``_engine_cache`` key of a TestHarness built with these kwargs."""
+    return tuple(sorted((k, repr(v)) for k, v in engine_kwargs.items()))
 
 
 def reset_engine_cache() -> None:
