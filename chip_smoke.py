@@ -105,7 +105,32 @@ Phases (each prints lines; any failure raises and exits non-zero):
              (torch.profiler). Then K1 in bf16 against its plain version at
              every (S, T) that run launched, failing on any it did not
              check.
-10. kernels — the large form's kernels at the shapes its engines give them:
+10. diar_tr — diarization and translation: Sortformer at full width
+             (SortformerDims: 128 mels, an 18-layer conformer at 512, an
+             18-layer head at 192, 4 speakers, spkcache and FIFO 188) over
+             20 chunks and NLLB at 600M widths with 2+2 layers (the greedy
+             tokens at three pad buckets), in f32 on the card against the
+             CPU; then ``random:base`` bf16 with ``diarization=True`` and
+             ``target_language="fr"``: Sortformer from a ``.nemo`` of seeded
+             f32 tensors in NeMo's layout written at full width (about half
+             a GB, in a temporary directory, deleted at the end) and
+             converted onto the card at engine start, NLLB at 600M widths in
+             bf16 (12+12 layers, seeded, a stand-in tokenizer) installed as
+             the engine's shared model; AudioProcessor sessions and two
+             ``WS /asr`` streams (one ``?target_language=de``), fed in real
+             time with one pause each (``vac``: the pause commits the open
+             translation on the event loop's thread). Checks words,
+             Sortformer segments and speakers on every session's lines, an
+             NLLB translation merged into every session, both target
+             languages, that no tick failed and that K1 launched; prints the
+             ms per Sortformer chunk, the translate calls (ms inside and
+             waiting for the model's lock, steps, ms and launches a step,
+             the ms on the loop's thread, the lag from a committed token to
+             its translation), the lock A/B, each model's card memory and
+             the word emission beside the main phase's. Then K1 in bf16
+             against its plain version at every (S, T) that run launched
+             (the encoder's full window and tail, the prefill buckets).
+11. kernels — the large form's kernels at the shapes its engines give them:
              K1 at the encoder's two shapes, every prefix bucket over the
              dense cross-KV and over the pool, and both refresh widths, and
              at every (S, T) the large, f8 and load runs launched; K2
@@ -798,9 +823,10 @@ CHUNK_S = 0.5
 PACE = 1.0
 
 
-async def _feed_processor(processor, pcm: np.ndarray, pace: float = PACE, delay: float = 0.0) -> list:
+async def _feed_processor(processor, pcm: np.ndarray, pace: float = PACE, delay: float = 0.0,
+                          raw: bool = False) -> list:
     """Stream PCM into an in-process session; returns its last lines as
-    (text, detected_language)."""
+    (text, detected_language), or as the wire's dicts when ``raw``."""
     await asyncio.sleep(delay)
     results = await processor.create_tasks()
     last = []
@@ -817,12 +843,15 @@ async def _feed_processor(processor, pcm: np.ndarray, pace: float = PACE, delay:
     await processor.process_audio(b"")
     await asyncio.wait_for(task, timeout=300)
     await processor.cleanup()
+    if raw:
+        return [ln.as_dict() for ln in last if ln.text]
     return [(ln.text, ln.detected_language) for ln in last if ln.text]
 
 
-async def _feed_websocket(url: str, pcm: np.ndarray, pace: float = PACE, delay: float = 0.0) -> list:
+async def _feed_websocket(url: str, pcm: np.ndarray, pace: float = PACE, delay: float = 0.0,
+                          raw: bool = False) -> list:
     """Stream PCM over ``WS /asr``; returns the last lines as (text,
-    detected_language)."""
+    detected_language), or as the wire's dicts when ``raw``."""
     import aiohttp
 
     await asyncio.sleep(delay)
@@ -839,7 +868,7 @@ async def _feed_websocket(url: str, pcm: np.ndarray, pace: float = PACE, delay: 
                     msg = await ws.receive_json(timeout=300)
                     if msg.get("type") == "ready_to_stop":
                         return
-                    texts = [(ln["text"], ln.get("detected_language"))
+                    texts = [ln if raw else (ln["text"], ln.get("detected_language"))
                              for ln in msg.get("lines", []) if ln.get("text")]
             task = asyncio.create_task(receive())
             step = int(16000 * CHUNK_S)
@@ -893,7 +922,7 @@ async def _main_path() -> dict:
                 shapes=counts["k1_shapes"], counts=counts, stats=stats, phases=phases)
 
 
-def phase_main() -> int:
+def phase_main() -> dict:
     import tempfile
 
     from whisperlivekit_tpu_torch.harness.vocab import install_standin_vocab
@@ -927,7 +956,7 @@ def phase_main() -> int:
     prefill = [s for (s, t) in seen if t == 1500 and s < 1500]
     if not (seen.get((1500, 1500)) and seen.get((384, 384)) and prefill):
         raise AssertionError(f"K1 did not launch at all three call sites: {shapes}")
-    return run["launches"]
+    return run
 
 
 def phase_reference_front() -> None:
@@ -2345,6 +2374,570 @@ def phase_kernels_la(launched: dict) -> dict:
     return records
 
 
+# ---------------------------------------------------------------------------
+# diar_tr: Sortformer diarization and NLLB translation on the card
+# ---------------------------------------------------------------------------
+
+DT_SESSIONS = 2          # AudioProcessor sessions in process, plus two over WS /asr (one asks for de)
+DT_SECONDS = 12.0
+DT_REF_CHUNKS = 20       # 1 s Sortformer chunks in the card-vs-CPU reference (the FIFO fills at 188 frames)
+DT_REF_TOL = 1e-4
+DT_NLLB_REF_STEPS = 16   # greedy steps in the NLLB reference (2+2 layers at 600M widths)
+DT_NLLB_BUCKETS = ((10, 16), (24, 32), (50, 64))  # (source tokens, pad bucket)
+# Random weights never produce end-of-text, so every translate call runs to
+# its max_len: 128 tokens for a committed segment and 64 for each draft; a
+# real translation of a few words ends a few tokens past its source's
+# length. The sessions' calls are pinned to these lengths, as the la phase
+# pins sample_len (the solo calls time the defaults).
+DT_PINNED = {128: 32, 64: 16}
+DT_AB_THREADS = 3        # sessions translating at once in the lock A/B
+
+
+def speech_with_pause(seconds: float, seed: int) -> np.ndarray:
+    """speech_pcm with 0.5 s of faint noise first (the energy VAD seeds its
+    noise floor there) and 1.5 s of it at the middle: one silence, which
+    makes the translator commit its segment on the event loop's thread
+    (``validate_buffer_and_reset``) and moves the diarizer's clock."""
+    rng = np.random.default_rng(seed + 1000)
+    quiet = lambda s: (rng.standard_normal(int(16000 * s)) * 30).astype("<i2")  # noqa: E731
+    half = (seconds - 2.0) / 2
+    return np.concatenate([quiet(0.5), speech_pcm(half, seed), quiet(1.5), speech_pcm(half, seed + 1)])
+
+
+def _nemo_tensors(dims, seed: int) -> dict:
+    """Every key of NeMo's diar_streaming_sortformer_4spk-v2 state dict at
+    ``dims``, in its layouts (Linear [out, in], conv OIHW, depthwise conv1d
+    [d, 1, K], pointwise conv1d [out, in, 1]), random f32 values from
+    ``seed``: weights N(0, 1/fan_in), LayerNorm weights near 1, batch-norm
+    statistics near (0, 1)."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def w(name, *shape):
+        fan_in = int(np.prod(shape[1:]))
+        sd[name] = rng.standard_normal(shape, dtype=np.float32) * np.float32(fan_in ** -0.5)
+
+    def small(name, *shape, center=0.0):
+        sd[name] = np.float32(center) + rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+
+    def lin(prefix, d_out, d_in, bias=True):
+        w(f"{prefix}.weight", d_out, d_in)
+        if bias:
+            small(f"{prefix}.bias", d_out)
+
+    C, d, ff, dm = dims.subsampling_channels, dims.d_encoder, dims.encoder_ff, dims.d_model
+    w("encoder.pre_encode.conv.0.weight", C, 1, 3, 3)
+    small("encoder.pre_encode.conv.0.bias", C)
+    for stage in (2, 5):
+        w(f"encoder.pre_encode.conv.{stage}.weight", C, 1, 3, 3)
+        small(f"encoder.pre_encode.conv.{stage}.bias", C)
+        w(f"encoder.pre_encode.conv.{stage + 1}.weight", C, C, 1, 1)
+        small(f"encoder.pre_encode.conv.{stage + 1}.bias", C)
+    lin("encoder.pre_encode.out", d, C * (-(-dims.n_mels // 8)))
+    for i in range(dims.encoder_layers):
+        p = f"encoder.layers.{i}"
+        for ln in ("norm_feed_forward1", "norm_self_att", "norm_conv", "norm_feed_forward2", "norm_out"):
+            small(f"{p}.{ln}.weight", d, center=1.0)
+            small(f"{p}.{ln}.bias", d)
+        for k in (1, 2):
+            lin(f"{p}.feed_forward{k}.linear1", ff, d)
+            lin(f"{p}.feed_forward{k}.linear2", d, ff)
+        for proj in ("linear_q", "linear_k", "linear_v", "linear_out"):
+            lin(f"{p}.self_attn.{proj}", d, d)
+        lin(f"{p}.self_attn.linear_pos", d, d, bias=False)
+        small(f"{p}.self_attn.pos_bias_u", dims.encoder_heads, d // dims.encoder_heads)
+        small(f"{p}.self_attn.pos_bias_v", dims.encoder_heads, d // dims.encoder_heads)
+        w(f"{p}.conv.pointwise_conv1.weight", 2 * d, d, 1)
+        small(f"{p}.conv.pointwise_conv1.bias", 2 * d)
+        w(f"{p}.conv.depthwise_conv.weight", d, 1, dims.conv_kernel)
+        small(f"{p}.conv.depthwise_conv.bias", d)
+        small(f"{p}.conv.batch_norm.weight", d, center=1.0)
+        small(f"{p}.conv.batch_norm.bias", d)
+        small(f"{p}.conv.batch_norm.running_mean", d)
+        sd[f"{p}.conv.batch_norm.running_var"] = 1.0 + np.abs(rng.standard_normal(d, dtype=np.float32)) * 0.1
+        sd[f"{p}.conv.batch_norm.num_batches_tracked"] = np.asarray(1000, np.int64)
+        w(f"{p}.conv.pointwise_conv2.weight", d, d, 1)
+        small(f"{p}.conv.pointwise_conv2.bias", d)
+    lin("sortformer_modules.encoder_proj", dm, d)
+    for i in range(dims.head_layers):
+        p = f"transformer_encoder.layers.{i}"
+        for proj in ("query_net", "key_net", "value_net", "out_projection"):
+            lin(f"{p}.first_sub_layer.{proj}", dm, dm)
+        lin(f"{p}.second_sub_layer.dense_in", dims.head_ff, dm)
+        lin(f"{p}.second_sub_layer.dense_out", dm, dims.head_ff)
+        for ln in ("layer_norm_1", "layer_norm_2"):
+            small(f"{p}.{ln}.weight", dm, center=1.0)
+            small(f"{p}.{ln}.bias", dm)
+    lin("sortformer_modules.first_hidden_to_hidden", dm, dm)
+    lin("sortformer_modules.hidden_to_spks", dims.max_speakers, dm)
+    return sd
+
+
+def write_nemo(directory, dims, seed: int):
+    """A ``.nemo`` tar holding ``model_weights.ckpt`` (a torch state dict of
+    ``_nemo_tensors``), as NeMo packs it. Returns (path, bytes)."""
+    import tarfile
+    from pathlib import Path
+
+    ckpt = Path(directory) / "model_weights.ckpt"
+    torch.save({k: torch.from_numpy(v) for k, v in _nemo_tensors(dims, seed).items()}, ckpt)
+    path = Path(directory) / "diar_streaming_sortformer_4spk-v2.nemo"
+    with tarfile.open(path, "w") as tar:
+        tar.add(ckpt, arcname="./model_weights.ckpt")
+    ckpt.unlink()
+    return str(path), path.stat().st_size
+
+
+async def _drain_diarizer(sess) -> list:
+    out = []
+    while True:
+        segs = await sess.diarize()
+        if not segs:
+            return out
+        out += segs
+
+
+def phase_reference_diar_tr() -> None:
+    """Sortformer at full width (SortformerDims: 128 mels, 18-layer
+    conformer at 512, 18-layer head at 192, 4 speakers, spkcache and FIFO
+    188) over DT_REF_CHUNKS chunks of speech-like audio, and NLLB at 600M
+    widths with 2+2 layers, in f32 on the card against the CPU, one set of
+    seeded weights on both. Sortformer: the cache must have compressed,
+    the probabilities stay within DT_REF_TOL, spkcache_len and fifo_len are
+    equal every chunk, and the speaker runs are equal except at frames
+    whose top two probabilities lie within DT_REF_TOL (logged). NLLB: the
+    encoder output and the first step's logits within DT_REF_TOL, their
+    top 8 in the same order, and the greedy tokens equal at three pad
+    buckets."""
+    import copy
+    import dataclasses
+
+    from whisperlivekit_tpu_torch.diarization import sortformer as SS
+    from whisperlivekit_tpu_torch.diarization import sortformer_model as SM
+    from whisperlivekit_tpu_torch.translation import nllb_model as NM
+
+    dims = SM.SortformerDims()
+    cpu = SM.init_params(dims, seed=7)
+    card = copy.deepcopy(cpu).to(CARD)
+    audio = speech_pcm(DT_REF_CHUNKS + 0.5, seed=70).astype(np.float32) / 32768.0
+    res = {}
+    real_step = SM.streaming_step
+    for side, model in (("card", card), ("cpu", cpu)):
+        probs, lens = [], []
+
+        def capture(*a, **k):
+            p, st = real_step(*a, **k)
+            probs.append(p[0].float().cpu().numpy())
+            lens.append((int(st.spkcache_len[0]), int(st.fifo_len[0])))
+            return p, st
+        SM.streaming_step = capture
+        try:
+            sess = SS.SortformerDiarization(model, dims).new_session()
+            sess.insert_audio_chunk(audio)
+            segs = asyncio.run(_drain_diarizer(sess))
+        finally:
+            SM.streaming_step = real_step
+        res[side] = (np.stack(probs), lens, [(g.speaker, g.start, g.end) for g in segs])
+    (gp, gl, gs), (cp, cl, cs) = res["card"], res["cpu"]
+    err = float(np.abs(gp - cp).max())
+    top2 = np.sort(cp, axis=-1)[..., -2:]
+    near = (top2[..., 1] - top2[..., 0]) <= DT_REF_TOL
+    differ = gp.argmax(-1) != cp.argmax(-1)
+    ties = [(int(c), int(f)) for c, f in zip(*np.nonzero(differ & near))]
+    ok = (err <= DT_REF_TOL and gl == cl and gl[-1][0] > 0 and not (differ & ~near).any()
+          and (gs == cs or ties))
+    log("reference", model="Sortformer full width f32 random", chunks=len(gl), frames_per_chunk=gp.shape[1],
+        max_abs_err=err, tol=DT_REF_TOL, spkcache_len=gl[-1][0], fifo_len=gl[-1][1],
+        compressions=sum(1 for c, f in gl if c > 0), segments=len(gs), segments_equal=gs == cs,
+        near_tie_frames_that_differ=ties, ok=ok)
+    if not ok:
+        raise AssertionError(f"the card's Sortformer disagrees with the CPU: err {err}, lens {gl[-3:]} / "
+                             f"{cl[-3:]}, differing frames {np.argwhere(differ)[:5].tolist()}")
+    del card, cpu
+
+    nd = dataclasses.replace(NM.NLLB_SIZES["600M"], encoder_layers=2, decoder_layers=2)
+    cpu_n = NM.init_params(nd, seed=8)
+    card_n = copy.deepcopy(cpu_n).to(CARD)
+    rng = np.random.default_rng(71)
+    errs, equal, lengths = [], [], []
+    for n_src, bucket in DT_NLLB_BUCKETS:
+        src = np.full((1, bucket), nd.pad_token_id, np.int64)
+        src[0, :n_src] = rng.integers(4, nd.vocab_size, n_src)
+        mask = np.arange(bucket)[None] < n_src
+        bos = int(rng.integers(4, nd.vocab_size))
+        out = {}
+        for side, m in (("card", card_n), ("cpu", cpu_n)):
+            dev = m.device
+            s_t, m_t = torch.from_numpy(src).to(dev), torch.from_numpy(mask).to(dev)
+            with torch.no_grad():
+                enc = NM.encode(m, s_t, nd, pad_mask=m_t)
+                xk, xv = NM.cross_kv(m, enc, nd)
+                cache = NM.init_cache(nd, 1, 4, dtype=m.dtype, device=dev)
+                logits, _ = NM.decode(m, torch.tensor([[2, bos]], device=dev), torch.zeros(1, dtype=torch.long,
+                                      device=dev), xk, xv, cache, nd, m_t)
+            toks = NM.greedy_translate(m, s_t, m_t, torch.tensor([bos], device=dev), 2, nd, DT_NLLB_REF_STEPS)
+            out[side] = (enc.float().cpu().numpy(), logits.float().cpu().numpy(), toks.cpu().tolist())
+        errs.append(max(float(np.abs(out["card"][0] - out["cpu"][0]).max()),
+                        float(np.abs(out["card"][1] - out["cpu"][1]).max())))
+        # random weights repeat one token, so the ranking of the first
+        # step's logits carries the comparison as well as the tokens
+        top = [np.argsort(-out[side][1][0, -1], kind="stable")[:8].tolist() for side in ("card", "cpu")]
+        equal.append(out["card"][2] == out["cpu"][2] and top[0] == top[1])
+        lengths.append(len(set(out["cpu"][2][0])))
+    ok = all(equal) and max(errs) <= DT_REF_TOL
+    log("reference", model="NLLB 600M widths f32 random, 2+2 layers", buckets=[b for _, b in DT_NLLB_BUCKETS],
+        steps=DT_NLLB_REF_STEPS, max_abs_err_enc_logits=max(errs), tol=DT_REF_TOL, tokens_and_top8_equal=equal,
+        distinct_tokens=lengths, ok=ok)
+    if not ok:
+        raise AssertionError(f"the card's NLLB disagrees with the CPU: tokens equal {equal}, errs {errs}")
+
+
+class DTInstrumented:
+    """Wraps, for the diar_tr run: every AudioProcessor built (in process
+    and behind WS /asr), each Sortformer chunk (host wall on the calling
+    thread, which is the event loop's), each NLLB translate (its wall with
+    the model's lock wait, the greedy loop's wall inside the lock, its
+    max_len and decoder steps, its thread and target language), each
+    translation merged (per session), and the lag from a committed token's
+    routing to its translation's merge. Restores everything on exit."""
+
+    def __init__(self):
+        import threading
+
+        from whisperlivekit_tpu_torch.diarization import sortformer as SS
+        from whisperlivekit_tpu_torch.session import processor as P
+        from whisperlivekit_tpu_torch.translation import nllb as NL
+        from whisperlivekit_tpu_torch.translation import nllb_model as NM
+
+        self.SS, self.P, self.NL, self.NM = SS, P, NL, NM
+        self.procs, self.chunks, self.calls, self.lags = [], [], [], []
+        self.merges = Counter()
+        self.tls = threading.local()
+        self.threading = threading
+
+    def __enter__(self):
+        SS, P, NL, NM, tls, th = self.SS, self.P, self.NL, self.NM, self.tls, self.threading
+        self.real = dict(init=P.AudioProcessor.__init__, diarize=SS.SortformerDiarizationOnline.diarize,
+                         translate=NL.NLLBModel.translate, greedy=NM.greedy_translate, decode=NM.decode,
+                         merge=P.StateStore.merge_translation, route=P.TranslationRouter.route,
+                         on_other=P.TranslateWorker.on_other)
+        real, stamps = self.real, {}
+
+        def init(proc, *a, **k):
+            real["init"](proc, *a, **k)
+            self.procs.append(proc)
+
+        async def diarize(sess):
+            t = time.perf_counter()
+            out = await real["diarize"](sess)
+            if out:
+                self.chunks.append((id(sess), (time.perf_counter() - t) * 1e3,
+                                    th.current_thread() is th.main_thread()))
+            return out
+
+        def translate(model, text, src, tgt, max_len=128):
+            max_len = DT_PINNED.get(max_len, max_len)
+            tls.steps, tls.inner_ms = 0, 0.0
+            t = time.perf_counter()
+            out = real["translate"](model, text, src, tgt, max_len)
+            self.calls.append(dict(ms=(time.perf_counter() - t) * 1e3, inner_ms=tls.inner_ms, max_len=max_len,
+                                   steps=max(tls.steps - 1, 0), tgt=tgt, text=out,
+                                   on_loop=th.current_thread() is th.main_thread()))
+            return out
+
+        def greedy(*a, **k):
+            t = time.perf_counter()
+            out = real["greedy"](*a, **k)
+            tls.inner_ms = (time.perf_counter() - t) * 1e3
+            return out
+
+        def decode(*a, **k):
+            tls.steps = getattr(tls, "steps", 0) + 1
+            return real["decode"](*a, **k)
+
+        async def merge(store, translation, buffer):
+            self.merges[id(store)] += 1
+            return await real["merge"](store, translation, buffer)
+
+        async def route(router, tokens):
+            for t in tokens or ():
+                stamps[id(t)] = time.perf_counter()
+            return await real["route"](router, tokens)
+
+        async def on_other(worker, item):
+            out = await real["on_other"](worker, item)
+            if id(item) in stamps:
+                self.lags.append(time.perf_counter() - stamps.pop(id(item)))
+            return out
+
+        P.AudioProcessor.__init__, SS.SortformerDiarizationOnline.diarize = init, diarize
+        NL.NLLBModel.translate, NM.greedy_translate, NM.decode = translate, greedy, decode
+        P.StateStore.merge_translation, P.TranslationRouter.route, P.TranslateWorker.on_other = merge, route, on_other
+        return self
+
+    def __exit__(self, *exc):
+        SS, P, NL, NM, real = self.SS, self.P, self.NL, self.NM, self.real
+        P.AudioProcessor.__init__, SS.SortformerDiarizationOnline.diarize = real["init"], real["diarize"]
+        NL.NLLBModel.translate, NM.greedy_translate, NM.decode = real["translate"], real["greedy"], real["decode"]
+        P.StateStore.merge_translation, P.TranslationRouter.route = real["merge"], real["route"]
+        P.TranslateWorker.on_other = real["on_other"]
+
+
+def _dt_solo(engine) -> dict:
+    """After the sessions, on the same models: a Sortformer chunk and an
+    NLLB call of each default length (64 and 128 steps) alone, their peak
+    card memory over the weights; one 32-step call traced by torch.profiler
+    (device activity only) for its launches a step; then the lock A/B:
+    DT_AB_THREADS threads each translating once at DT_PINNED's emit length,
+    unlocked and with the model's lock, in turns (unlocked, locked, locked,
+    unlocked), and the same calls one after another."""
+    import contextlib
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisperlivekit_tpu_torch.translation import nllb_model as NM
+
+    shared, model = engine.diarization_model, engine.translation_model.nllb
+    out = {}
+    nbytes = lambda m: sum(p.numel() * p.element_size() for p in m.parameters())  # noqa: E731
+    sess = shared.new_session()
+    sess.insert_audio_chunk(speech_pcm(3.0, seed=80).astype(np.float32) / 32768.0)
+    asyncio.run(sess.diarize())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    asyncio.run(sess.diarize())
+    out["diarize_solo_ms"] = (time.perf_counter() - t) * 1e3
+    out["sortformer"] = dict(weights_GB=nbytes(shared.params) / 2**30,
+                             peak_over_base_GB=(torch.cuda.max_memory_allocated() - base) / 2**30)
+    steps = [0]
+    real_decode = NM.decode
+
+    def counting(*a, **k):
+        steps[0] += 1
+        return real_decode(*a, **k)
+    NM.decode = counting
+    try:
+        text = "a sentence of a few words, as a session commits it."
+        model.translate(text, "en", "fr", max_len=8)
+        for max_len in (64, 128):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            steps[0] = 0
+            t = time.perf_counter()
+            model.translate(text, "en", "fr", max_len=max_len)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            out[f"translate_{max_len}"] = dict(ms=ms, steps=steps[0] - 1, ms_per_step=ms / max(steps[0] - 1, 1))
+        out["nllb"] = dict(weights_GB=nbytes(model.params) / 2**30,
+                           peak_over_base_GB=(torch.cuda.max_memory_allocated() - base) / 2**30)
+        steps[0] = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            model.translate(text, "en", "fr", max_len=32)
+            torch.cuda.synchronize()
+        n_steps = steps[0] - 1
+    finally:
+        NM.decode = real_decode
+    ev = prof.key_averages()
+    launches = sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    out["launches_per_step"] = launches / max(n_steps, 1)
+
+    def burst(lock) -> float:
+        real_lock, model.lock = model.lock, lock
+
+        def work():
+            model.translate(text, "en", "fr", max_len=DT_PINNED[128])
+        ths = [threading.Thread(target=work) for _ in range(DT_AB_THREADS)]
+        t = time.perf_counter()
+        try:
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join()
+            torch.cuda.synchronize()
+        finally:
+            model.lock = real_lock
+        return time.perf_counter() - t
+
+    out["lock_ab_s"] = [(arm, round(burst(contextlib.nullcontext() if arm == "unlocked" else threading.Lock()), 3))
+                        for arm in ("unlocked", "locked", "locked", "unlocked")]
+    t = time.perf_counter()
+    for _ in range(DT_AB_THREADS):
+        model.translate(text, "en", "fr", max_len=DT_PINNED[128])
+    torch.cuda.synchronize()
+    out["one_after_another_s"] = round(time.perf_counter() - t, 3)
+    return out
+
+
+async def _main_path_diar_tr(nemo_path: str) -> dict:
+    """``random:base`` bf16 with ``diarization=True`` (Sortformer from the
+    written .nemo, converted onto the card at engine start) and
+    ``target_language="fr"`` (NLLB at 600M widths in bf16, seeded random,
+    with the stand-in tokenizer, installed as the engine's shared model
+    before the first session): AudioProcessor sessions and two ``WS /asr``
+    streams, one asking ``?target_language=de``, fed in real time."""
+    from aiohttp import web
+
+    from whisperlivekit_tpu_torch.diarization import sortformer as SS
+    from whisperlivekit_tpu_torch.engine.core import TranscriptionEngine, WLKConfig
+    from whisperlivekit_tpu_torch.harness.vocab import StandinNLLBTokenizer
+    from whisperlivekit_tpu_torch.server.app import WLKServer
+    from whisperlivekit_tpu_torch.session.processor import AudioProcessor
+    from whisperlivekit_tpu_torch.translation import nllb as NL
+    from whisperlivekit_tpu_torch.translation import nllb_model as NM
+
+    config = WLKConfig(model_size="random:base", lan="en", pcm_input=True, vac=True, param_dtype="bfloat16",
+                       log_level="WARNING", diarization=True, sortformer_model_path=nemo_path,
+                       target_language="fr")
+    t0 = time.perf_counter()
+    engine = TranscriptionEngine(config)
+    sortformer_load_s = time.perf_counter() - t0
+    shared = engine.diarization_model
+    if not (isinstance(shared, SS.SortformerDiarization) and shared.params.device.type == "cuda"
+            and shared.dims == SS.S.SortformerDims()):
+        raise AssertionError(f"diarization model {type(shared).__name__} on {getattr(shared, 'params', None)}")
+    nd = NM.NLLB_SIZES["600M"]
+    t1 = time.perf_counter()
+    engine.translation_model.nllb = NL.NLLBModel(NM.init_params(nd, seed=9, dtype=torch.bfloat16, device="cuda"),
+                                                 nd, StandinNLLBTokenizer())
+    torch.cuda.synchronize()
+    nllb_init_s = time.perf_counter() - t1
+    runner = web.AppRunner(WLKServer(config, engine=engine).app)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    host, port = runner.addresses[0][:2]
+    setup_s = time.perf_counter() - t0
+    try:
+        with DTInstrumented() as ins:
+            _reset_kernel_counts()  # the diar_tr path's run counts from here
+            engine.scheduler.reset_stats()
+            t2 = time.perf_counter()
+            pcms = [speech_with_pause(DT_SECONDS, seed=90 + 2 * s) for s in range(DT_SESSIONS + 2)]
+            procs = [AudioProcessor(transcription_engine=engine) for _ in range(DT_SESSIONS)]
+            url = f"http://{host}:{port}/asr"
+            lines = await asyncio.gather(
+                *(_feed_processor(p, pcm, raw=True) for p, pcm in zip(procs, pcms)),
+                _feed_websocket(url, pcms[DT_SESSIONS], raw=True),
+                _feed_websocket(url + "?target_language=de", pcms[DT_SESSIONS + 1], raw=True),
+            )
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t2
+            counts = _kernel_counts()
+        stats = engine.scheduler.stats()
+    finally:
+        await runner.cleanup()
+        TranscriptionEngine.reset()
+    sessions = [dict(diar=id(p.diarization), tr=p.translation, store=id(p.store)) for p in ins.procs
+                if p.translation is not None]
+    return dict(lines=lines, wall=wall, setup_s=setup_s, sortformer_load_s=sortformer_load_s,
+                nllb_init_s=nllb_init_s, counts=counts, stats=stats, ins=ins, sessions=sessions, engine=engine)
+
+
+def phase_diar_tr(main_run: dict) -> dict:
+    """Diarization and translation on the card: the f32 references, then the
+    serving run (see ``_main_path_diar_tr``) with a Sortformer .nemo written
+    at full width in a temporary directory (deleted at the end)."""
+    import gc
+    import tempfile
+
+    from whisperlivekit_tpu_torch.harness.vocab import install_standin_vocab
+    from whisperlivekit_tpu_torch.diarization import sortformer_model as SM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_reference_diar_tr()
+    with tempfile.TemporaryDirectory(prefix="wlk_diar_tr_") as tmp:
+        install_standin_vocab(tmp)
+        t = time.perf_counter()
+        nemo_path, nemo_bytes = write_nemo(tmp, SM.SortformerDims(), seed=11)
+        write_s = time.perf_counter() - t
+        run = asyncio.run(_main_path_diar_tr(nemo_path))
+        solo = _dt_solo(run.pop("engine"))
+    ins, stats, counts = run["ins"], run["stats"], run["counts"]
+    words = [sum(len(ln["text"].split()) for ln in lines) for lines in run["lines"]]
+    speakers = [sorted({ln["speaker"] for ln in lines if ln.get("text")}) for lines in run["lines"]]
+    with_translation = [sum(1 for ln in lines if ln.get("translation") is not None) for lines in run["lines"]]
+    per_session = Counter(sid for sid, _, _ in ins.chunks)
+    chunk_ms = [ms for _, ms, _ in ins.chunks]
+    diar_sessions = [per_session[s["diar"]] for s in run["sessions"]]
+    merges = [ins.merges[s["store"]] for s in run["sessions"]]
+    tgts = sorted({s["tr"].tgt for s in run["sessions"]})
+    calls = ins.calls
+    steps = [c["steps"] for c in calls]
+    inner = [c["inner_ms"] for c in calls]
+    waits = [c["ms"] - c["inner_ms"] for c in calls]
+    loop_calls = [c for c in calls if c["on_loop"]]
+    texts = [c["text"] for c in calls]
+    log("diar_tr", model="random:base bf16, Sortformer full width f32 (.nemo), NLLB 600M bf16", vac=True,
+        sessions=len(words), audio_s_each=DT_SECONDS, pace=PACE, words_per_session=words,
+        line_speakers_per_session=speakers, lines_with_translation=with_translation,
+        translations_merged_per_session=merges, targets=tgts, wall_s=round(run["wall"], 3),
+        setup_s=round(run["setup_s"], 3), nemo_GB=round(nemo_bytes / 2**30, 3), nemo_write_s=round(write_s, 2),
+        sortformer_load_s=round(run["sortformer_load_s"], 2), nllb_init_s=round(run["nllb_init_s"], 2),
+        ticks=stats["n_ticks"], failed_ticks=stats["n_failed_ticks"])
+    log("diar_tr", diarize_chunks_per_session=diar_sessions, diarize_ms_p50=_quantile(chunk_ms, 0.5),
+        diarize_ms_p95=_quantile(chunk_ms, 0.95), on_event_loop_thread=all(on for _, _, on in ins.chunks),
+        solo_chunk_ms=round(solo["diarize_solo_ms"], 2))
+    log("diar_tr", translate_calls=len(calls), translate_ms_p50=_quantile(inner, 0.5),
+        translate_ms_p95=_quantile(inner, 0.95), lock_wait_ms_p50=_quantile(waits, 0.5),
+        lock_wait_ms_p95=_quantile(waits, 0.95), steps_per_call=dict(Counter(steps)),
+        ms_per_step_in_run=round(sum(inner) / max(sum(steps), 1), 3), pinned=DT_PINNED,
+        loop_thread_calls=len(loop_calls), loop_thread_translate_ms=round(sum(c["ms"] for c in loop_calls), 1),
+        translation_lag_s_p50=_quantile(ins.lags, 0.5), translation_lag_s_p95=_quantile(ins.lags, 0.95), nonempty_texts=sum(1 for x in texts if x),
+        sample_texts=[repr(x[:24]) for x in texts[:3]])
+    log("diar_tr", solo=f"translate 64 and 128 steps, {solo['launches_per_step']:.0f} launches a step",
+        ms_64=round(solo["translate_64"]["ms"], 1), ms_128=round(solo["translate_128"]["ms"], 1),
+        ms_per_step=round(solo["translate_128"]["ms_per_step"], 3), launches_per_step=round(solo["launches_per_step"], 1))
+    log("diar_tr", lock_ab=f"{DT_AB_THREADS} threads x 1 call of {DT_PINNED[128]} steps",
+        arms_s=solo["lock_ab_s"], one_after_another_s=solo["one_after_another_s"])
+    log("diar_tr", sortformer_weights_GB=round(solo["sortformer"]["weights_GB"], 3),
+        sortformer_peak_over_weights_GB=round(solo["sortformer"]["peak_over_base_GB"], 4),
+        nllb_weights_GB=round(solo["nllb"]["weights_GB"], 3),
+        nllb_peak_over_weights_GB=round(solo["nllb"]["peak_over_base_GB"], 4))
+    log("diar_tr", word_emission_p50_ms=stats["word_emission_p50_ms"],
+        word_emission_p95_ms=stats.get("word_emission_p95_ms"),
+        main_word_emission_p50_ms=main_run["stats"]["word_emission_p50_ms"],
+        main_word_emission_p95_ms=main_run["stats"].get("word_emission_p95_ms"),
+        tick_ms_p50=stats["tick_ms_p50"], main_tick_ms_p50=main_run["stats"]["tick_ms_p50"])
+    log("diar_tr", kernel="flash_encoder_attn", launches=counts["flash_encoder_attn"],
+        launches_by_SxT={f"{s}x{t}": n for (s, t), n in sorted(counts["k1_shapes"].items())},
+        per_tick=round(counts["flash_encoder_attn"] / max(stats["n_ticks"], 1), 2))
+    _check_k1_bodies("diar_tr", counts)
+    if stats["n_failed_ticks"]:
+        raise AssertionError(f"{stats['n_failed_ticks']} batch ticks failed")
+    if not all(words):
+        raise AssertionError(f"a session got no words: {words}")
+    if len(run["sessions"]) != DT_SESSIONS + 2 or not all(diar_sessions) or not all(speakers):
+        raise AssertionError(f"a session got no Sortformer segments: chunks {diar_sessions}, speakers {speakers}")
+    if not all(merges) or tgts != ["de", "fr"] or not loop_calls:
+        raise AssertionError(f"translations merged {merges}, targets {tgts}, loop-thread calls {len(loop_calls)}")
+    if not counts["flash_encoder_attn"]:
+        raise AssertionError("K1 never launched in the diar_tr phase")
+    return run
+
+
+def phase_kernels_diar_tr(launched: dict) -> dict:
+    """K1 in bf16 at every (S, T) the diar_tr phase launched it, at the base
+    form's batch: the encoder's full window and tail, and each prefill
+    bucket over the pool. Fails on a launched (S, T) it did not check."""
+    records = {}
+    for S, T in sorted(launched):
+        if (S, T) == (1500, 1500):
+            label, vt = "diar_tr encoder full window", False
+        elif (S, T) == (384, 384):
+            label, vt = "diar_tr encoder tail", False
+        elif T == 1500 and S in PREFIX_BUCKETS:
+            label, vt = f"diar_tr prefill cross-attention, bucket {S}", True
+        else:
+            raise AssertionError(f"the diar_tr run launched K1 at an unchecked shape {(S, T)}")
+        records[(S, T)] = _check_k1(label, "base", S, T, T, vt, torch.bfloat16, B, H)
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--k3-ab", metavar="LOG_MEL_CU", default=None,
@@ -2367,7 +2960,7 @@ def main(argv=None) -> int:
 
     card = timed("device", phase_device)
     records = timed("kernels", phase_kernels)
-    base_launches = timed("main", phase_main)
+    main_run = timed("main", phase_main)
     front = timed("front", phase_front)
     large = timed("large", phase_large)
     f8 = timed("f8", phase_f8, large)
@@ -2376,6 +2969,8 @@ def main(argv=None) -> int:
     load = timed("load", phase_load, card)
     la = timed("la", phase_la)
     la_records = timed("kernels_la", phase_kernels_la, la["counts"]["k1_shapes"])
+    dt = timed("diar_tr", phase_diar_tr, main_run)
+    dt_records = timed("kernels_diar_tr", phase_kernels_diar_tr, dt["counts"]["k1_shapes"])
     large_records = timed("kernels_large", phase_kernels_large,
                           {"large-v3": large["geom"], "large-v3 f8": f8["geom"], LOAD_MODEL: load["geom"]},
                           Counter(large["counts"]["k1_shapes"]) + Counter(f8["counts"]["k1_shapes"])
@@ -2401,6 +2996,7 @@ def main(argv=None) -> int:
                 if key[0] == "flash_encoder_attn" and key[3] == "bfloat16"]
     k1_errs += [r["max_abs_err"] for r in beam_records.values()]
     k1_errs += [r["max_abs_err"] for r in la_records.values()]
+    k1_errs += [r["max_abs_err"] for r in dt_records.values()]
     k1 = large_records[("flash_encoder_attn", 1500, 1500, "bfloat16")]
     G = large["geom"]["group_width"]
     L = large["geom"]["n_text_layer"]
@@ -2408,13 +3004,14 @@ def main(argv=None) -> int:
     k2_f8 = large_records[("xkv_splice", L, G, "float8_e4m3fn", "bfloat16")]
     k3 = k3_records[(8, 480000, 80)]
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    launches = {"flash_encoder_attn": {"base": base_launches,
+    launches = {"flash_encoder_attn": {"base": main_run["launches"],
                                        "front": front["counts"]["flash_encoder_attn"],
                                        "large": large["counts"]["flash_encoder_attn"],
                                        "f8": f8["counts"]["flash_encoder_attn"],
                                        "beam": beam["counts"]["flash_encoder_attn"],
                                        "load": load["counts"]["flash_encoder_attn"],
-                                       "la": la["counts"]["flash_encoder_attn"]},
+                                       "la": la["counts"]["flash_encoder_attn"],
+                                       "diar_tr": dt["counts"]["flash_encoder_attn"]},
                 "xkv_splice": {"large": large["counts"]["xkv_splice"], "f8": f8["counts"]["xkv_splice"],
                                "load": load["counts"]["xkv_splice"]},
                 "log_mel_pallas": {"front": front["counts"]["log_mel_pallas"],

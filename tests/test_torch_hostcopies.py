@@ -1,7 +1,9 @@
 """The port's own copies of the JAX package's host-only modules (config,
 CLI, tokenizer, session plane, VAD, web page, native PCM runtime, audio IO,
 WER and normalizers, the Deepgram adapter, the WS test client, the decoding
-options and writers, DTW, the windowed policy and the session proxy) against
+options and writers, DTW, the windowed policy, the session proxy, the
+energy, embedding and diart diarization backends, the translation base and
+the AlignAtt sidecar client) against
 the modules they were copied from: the same public names, and one sample of
 behaviour each that agrees on the same inputs."""
 
@@ -23,7 +25,8 @@ MODULES = (
     "server.web", "native", "audio.io", "harness.wer", "harness.normalizers",
     "server.deepgram_compat", "test_client",
     "decoding.options", "decoding.writers", "ops.dtw", "streaming.windowed",
-    "streaming.session_proxy",
+    "streaming.session_proxy", "diarization.energy", "diarization.embedding", "diarization.diart",
+    "translation.base", "translation.alignatt_client",
 )
 
 
@@ -215,7 +218,84 @@ def _session_proxy(m):
         asr.original_language
 
 
+def _two_voices():
+    rng = np.random.default_rng(5)
+    t = np.arange(16000 * 3) / 16000
+    return [(0.25 * sum(np.sin(2 * np.pi * f0 * k * t + rng.uniform(0, 6)) / k for k in range(1, 6)) / 2
+             + 0.01 * rng.standard_normal(t.shape)).astype(np.float32) for f0 in (110, 290, 110)]
+
+
+def _diarize_all(d, parts, silence=2.0):
+    import asyncio
+
+    async def run():
+        out = []
+        for part in parts:
+            d.insert_audio_chunk(part)
+            while True:
+                segs = await d.diarize()
+                if not segs:
+                    break
+                out += [(s.speaker, round(s.start, 6), round(s.end, 6)) for s in segs]
+            d.insert_silence(silence)
+        return out
+    return asyncio.run(run())
+
+
+def _energy(m):
+    from types import SimpleNamespace
+
+    holder = m.load_diarization_model(SimpleNamespace(diarization_backend="energy"))
+    return _diarize_all(holder.new_session(), _two_voices()), _diarize_all(m.EnergyDiarization(), [np.zeros(16000)])
+
+
+def _embedding(m):
+    holder = m.load_embedding_diarization(None)
+    return _diarize_all(holder.new_session(), _two_voices()), m._dct_matrix(4, 8).tolist()
+
+
+def _diart(m):
+    """One ``diarize`` per part: diart returns the cumulative view."""
+    import asyncio
+
+    from test_diart_backend import FakePipeline
+
+    sess = m.DiartDiarization(pipeline_factory=FakePipeline).new_session()
+    out = []
+    for part in (np.zeros(16000, np.float32), np.zeros(12000, np.float32), np.zeros(4000, np.float32)):
+        sess.insert_audio_chunk(part)
+        out.append([(s.speaker, s.start, s.end) for s in asyncio.run(sess.diarize())])
+        sess.insert_silence(1.5)
+    return out
+
+
+def _translation_base(m):
+    timed = importlib.import_module(m.__name__.rsplit(".", 2)[0] + ".timed")
+    t = m.EchoTranslation("en", "fr")
+    out = []
+    for i, text in enumerate((" hello", " world.", " and", " more")):
+        t.insert_tokens([timed.ASRToken(start=i, end=i + 1, text=text)])
+        tr, buf = t.process()
+        out.append((tr and (tr.start, tr.end, tr.text), buf.text))
+    tr, _ = t.validate_buffer_and_reset()
+    return out, (tr.start, tr.end, tr.text), t.validate_buffer_and_reset()[0]
+
+
+def _alignatt_client(m):
+    from types import SimpleNamespace
+
+    timed = importlib.import_module(m.__name__.rsplit(".", 2)[0] + ".timed")
+    c = m.AlignAttTranslationClient(SimpleNamespace(alignatt_latency="quality"), "en", "de")
+    c.insert_tokens([timed.ASRToken(start=0, end=1, text=" one"), timed.HypothesisTail(start=1, end=2, text="tw")])
+    c.insert_tokens(timed.ASRToken(start=1, end=2, text=" two."))
+    words = c._word_dicts(c._committed_words)
+    tr, buf = c.validate_buffer_and_reset()
+    return m.LATENCY_PRESETS, c.url, c.preset, words, (tr.start, tr.end, tr.text), buf.text, c._committed_words
+
+
 SAMPLES = {
+    "diarization.energy": _energy, "diarization.embedding": _embedding, "diarization.diart": _diart,
+    "translation.base": _translation_base, "translation.alignatt_client": _alignatt_client,
     "decoding.options": _options, "decoding.writers": _writers, "ops.dtw": _dtw,
     "streaming.windowed": _windowed, "streaming.session_proxy": _session_proxy,
     "audio.io": _io, "harness.wer": _wer, "harness.normalizers": _normalizers,

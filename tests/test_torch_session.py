@@ -296,7 +296,9 @@ def test_port_imports_without_jax():
                  "ops.mel_pallas", "decoding.task", "config", "native", "server.web",
                  "decoding.options", "decoding.writers", "decoding.beam", "decoding.timing",
                  "decoding.transcribe", "ops.dtw", "streaming.local_agreement",
-                 "streaming.windowed", "streaming.session_proxy"):
+                 "streaming.windowed", "streaming.session_proxy", "diarization.sortformer",
+                 "diarization.sortformer_model", "diarization.diart", "translation.nllb",
+                 "translation.nllb_model", "translation.alignatt_client"):
         assert f"whisperlivekit_tpu_torch.{name}" in imported, name
 
 

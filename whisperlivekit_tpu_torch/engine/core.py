@@ -12,9 +12,14 @@ seeded ``torch.Generator`` (the numbers differ from the JAX package's
 ``PRNGKey(0)`` weights; parity tests bridge JAX weights through
 ``params_from_jax_numpy`` or load one checkpoint in both packages).
 
+Diarization (``diarization/``: Sortformer on the engine's device, the
+energy, embedding and diart backends) and translation (``translation/``:
+NLLB on the engine's device, loaded once on its first session; the AlignAtt
+sidecar client; echo when the NLLB weights are absent) build their shared
+models here, as the JAX engine does.
+
 What is not ported yet raises NotImplementedError naming the module: the
-cloud, Qwen3 and Voxtral backends, the batched JAX VAD, diarization and
-translation.
+cloud, Qwen3 and Voxtral backends and the batched JAX VAD.
 """
 
 from __future__ import annotations
@@ -235,9 +240,13 @@ class TranscriptionEngine:
 
             self.vac_model = load_vad_model()
         if config.diarization:
-            raise NotImplementedError("diarization (diarization/) is not ported yet")
+            from ..diarization import load_diarization_model
+
+            self.diarization_model = load_diarization_model(config, device=self.device)
         if config.target_language:
-            raise NotImplementedError("translation (translation/) is not ported yet")
+            from ..translation import load_translation_model
+
+            self.translation_model = load_translation_model(config, device=self.device)
         if config.warmup_file:
             self.warmup(config.warmup_file)
 
@@ -344,16 +353,22 @@ def online_factory(config: WLKConfig, asr, language: Optional[str] = None, sched
 def online_diarization_factory(config: WLKConfig, diarization_model):
     if diarization_model is None:
         return None
-    raise NotImplementedError("diarization (diarization/) is not ported yet")
+    return diarization_model.new_session()
 
 
 def online_translation_factory(config: WLKConfig, translation_model):
     if translation_model is None:
         return None
-    raise NotImplementedError("translation (translation/) is not ported yet")
+    return translation_model.new_session(
+        src=config.lan if config.lan != "auto" else "en",
+        tgt=config.target_language,
+    )
 
 
 def session_translation_factory(config: WLKConfig, translation_model, target_language: str):
     if translation_model is None:
         return None
-    raise NotImplementedError("translation (translation/) is not ported yet")
+    return translation_model.new_session(
+        src=config.lan if config.lan != "auto" else "en",
+        tgt=target_language,
+    )

@@ -13,6 +13,8 @@ Usage::
 
     from whisperlivekit_tpu_torch.harness.vocab import install_standin_vocab
     install_standin_vocab(tmp_dir)   # writes the file, sets WLK_TPU_ASSET_DIR
+
+``StandinNLLBTokenizer`` plays the same part for NLLB's ``tokenizer.json``.
 """
 
 from __future__ import annotations
@@ -61,3 +63,36 @@ def install_standin_vocab(directory) -> Path:
     path = write_standin_vocab(directory)
     os.environ["WLK_TPU_ASSET_DIR"] = str(path.parent)
     return path
+
+
+class StandinNLLBTokenizer:
+    """Stand-in for NLLB's ``tokenizer.json`` (a ``tokenizers.Tokenizer``
+    duck type: ``encode(text).ids``, ``token_to_id``, ``decode``) for runs
+    without the real SentencePiece model. Ids 0-3 are NLLB's specials
+    (``<s>``, ``<pad>``, ``</s>``, ``<unk>``), each UTF-8 byte b of the text
+    is id 4 + b, and the FLORES codes of ``translation/nllb.py`` follow at
+    260. ``decode`` maps every other id to one printable ASCII character,
+    ``chr(32 + (id - 4) % 95)``, so random weights decode to text."""
+
+    N_SPECIAL = 4
+
+    class _Encoding:
+        def __init__(self, ids):
+            self.ids = ids
+
+    def __init__(self):
+        from ..translation.nllb import FLORES
+
+        base = self.N_SPECIAL + 256
+        self.lang_ids = {code: base + i for i, code in enumerate(sorted(set(FLORES.values())))}
+
+    def encode(self, text: str) -> "_Encoding":
+        return self._Encoding([self.N_SPECIAL + b for b in text.encode("utf-8")])
+
+    def token_to_id(self, token: str):
+        return self.lang_ids.get(token)
+
+    def decode(self, ids) -> str:
+        langs = set(self.lang_ids.values())
+        return "".join(chr(32 + (i - self.N_SPECIAL) % 95) for i in ids
+                       if i >= self.N_SPECIAL and i not in langs)
