@@ -130,7 +130,40 @@ Phases (each prints lines; any failure raises and exits non-zero):
              the word emission beside the main phase's. Then K1 in bf16
              against its plain version at every (S, T) that run launched
              (the encoder's full window and tail, the prefill buckets).
-11. kernels — the large form's kernels at the shapes its engines give them:
+11. causal  — Qwen3-ASR causal: at the 0.6B model's full widths with 4+4
+             layers in f32, two blocks appended and a hypothesis decoded on
+             the card against the CPU (tokens and each block's top-8 ids
+             equal, logits within 1e-4, and the same card run with TF32 on
+             outside 1e-4), and two sessions through the pooled lanes against the same two
+             on local caches on the card (equal words); then the 0.6B model
+             at full width and depth (24-layer tower, 28-layer Qwen3) in
+             bf16 from a checkpoint directory written from a seed (about
+             1.8 GB, in a temporary directory, deleted at the end), served
+             with the pooled lanes (CausalBatchService, OpBatcher):
+             AudioProcessor sessions and one ``WS /asr`` stream fed in real
+             time. Checks words on every session after its final flush, an
+             append batch that packed two sessions or more and nothing
+             logged; prints the ms of each op batch (to a synchronize) by
+             op and size, decode steps, the ms and launches a step of a
+             traced decode alone, the pools' bytes per lane, peak card
+             memory over the weights, and the word emission (a tick's call
+             to its result, p50 / p95).
+12. voxtral — Voxtral: at Voxtral-Mini-3B's widths with 2+2 layers in f32
+             on the card against the CPU (greedy tokens and the top-8 ids
+             equal, logits within 1e-4, and the same card run with TF32 on
+             outside 1e-4); then one checkpoint at those widths with 4+4
+             layers in bf16 (written from a seed, deleted at the end)
+             served twice: by Voxtral realtime (the causal machinery,
+             pooled lanes; AudioProcessor sessions, checked and printed as
+             the causal phase) and by Voxtral offline under the windowed
+             policy (AudioProcessor sessions and one ``POST
+             /v1/audio/transcriptions``, a stand-in decode of the token
+             ids, VOX_PINNED_NEW new tokens a call). Checks words on every
+             session and in the post, and that K1 launched on tensor cores;
+             prints a transcribe's ms and launches a step alone and the
+             backend lock's A/B. Then K1 in bf16 against its plain version
+             at every (S, T) that run launched.
+13. kernels — the large form's kernels at the shapes its engines give them:
              K1 at the encoder's two shapes, every prefix bucket over the
              dense cross-KV and over the pool, and both refresh widths, and
              at every (S, T) the large, f8 and load runs launched; K2
@@ -164,6 +197,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import ctypes
 import json
 import logging
@@ -262,6 +296,9 @@ class LogWatch(logging.Handler):
         "[SimulStreaming guard]",       # policy reset on a looping hypothesis
         "Audio buffer too large",       # backpressure when a feed outruns its ticks
         "No ASR output for",            # LocalAgreement's reset of a buffer that committed nothing
+        "qwen3 tokenizer files absent",   # the seeded checkpoint directories hold no tokenizer
+        "voxtral tokenizer files absent",
+        "Voxtral tokenizer.json missing",
     )
 
     def __init__(self):
@@ -2938,6 +2975,603 @@ def phase_kernels_diar_tr(launched: dict) -> dict:
     return records
 
 
+# ---------------------------------------------------------------------------
+# causal: Qwen3-ASR causal (block-causal tower, Qwen3 decoder, pooled lanes)
+# ---------------------------------------------------------------------------
+
+CAUSAL_SESSIONS = 4      # AudioProcessor sessions in process, plus one over WS /asr
+CAUSAL_SECONDS = 12.0
+CAUSAL_REF_LAYERS = 4    # tower and text depth of the f32 card-vs-CPU reference (full widths)
+CAUSAL_REF_STEPS = 16    # hypothesis steps in the reference
+# f32 logits after 4+4 layers at full width, card against CPU: the sound
+# runs land near 3e-6; the same run with TF32 on must land above it
+CAUSAL_REF_TOL = 1e-4
+CAUSAL_SOLO_LANES = 4    # lanes of the traced decode after the run
+
+
+@contextlib.contextmanager
+def _tf32():
+    """TF32 on for cuBLAS and cuDNN inside the block (the smoke runs with it
+    off): what a reference's tolerance must be able to catch."""
+    was = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = was
+
+
+def _top8(logits: torch.Tensor) -> list:
+    """The eight highest ids of a logits vector, best first (random weights
+    repeat one token, so the ranking carries the comparison too)."""
+    return torch.topk(logits.reshape(-1).float(), 8).indices.tolist()
+
+
+def _causal_words(proc_cls, holder, seeds, service=None) -> list:
+    """Sessions of 4 s (1 s chunks) through the causal policy: each one's
+    committed (text, start, end). With ``service``, concurrently through
+    its pooled lanes; else one after another on local caches."""
+    def chunks(seed):
+        pcm = speech_pcm(4.0, seed=seed).astype(np.float32) / 32768.0
+        return [pcm[i * 16000:(i + 1) * 16000] for i in range(4)]
+
+    def keep(out, tokens):
+        out.extend((t.text, t.start, t.end) for t in tokens)
+
+    if service is None:
+        result = []
+        for seed in seeds:
+            proc, out = proc_cls(holder), []
+            for i, c in enumerate(chunks(seed)):
+                proc.insert_audio_chunk(c, float(i + 1))
+                keep(out, proc.process_iter()[0])
+            keep(out, proc.finish()[0])
+            result.append(out)
+        return result
+
+    async def one(seed):
+        proc, out = proc_cls(holder, service=service), []
+        for i, c in enumerate(chunks(seed)):
+            proc.insert_audio_chunk(c, float(i + 1))
+            keep(out, (await proc.process_iter_async())[0])
+        keep(out, (await proc.finish_async())[0])
+        proc.close()
+        return out
+
+    async def main():
+        return list(await asyncio.gather(*(one(s) for s in seeds)))
+    return asyncio.run(main())
+
+
+def phase_reference_causal() -> None:
+    """Qwen3-ASR at the 0.6B model's full widths with the depth cut to 4+4
+    layers, f32, the weights from one seed: two blocks appended and one
+    hypothesis decoded on the card and on the CPU from the same mel (tokens
+    and lengths equal, the logits after each block within CAUSAL_REF_TOL);
+    then on the card two sessions through the pooled lanes against the same
+    two on local caches (the committed words and times equal). Each
+    block's top-8 ids must be equal too, and the card's run repeated with
+    TF32 on must land outside CAUSAL_REF_TOL, or the check could not see
+    TF32 creep into the f32 path."""
+    import copy
+    import dataclasses
+
+    from whisperlivekit_tpu_torch.models import llama as LM
+    from whisperlivekit_tpu_torch.models import qwen3_asr as QM
+    from whisperlivekit_tpu_torch.streaming import qwen3_batch as QB
+    from whisperlivekit_tpu_torch.streaming import qwen3_causal as QC
+
+    text = dataclasses.replace(QM.QWEN3_0_6B_TEXT, n_layers=CAUSAL_REF_LAYERS)
+    dims = QM.Qwen3ASRDims(text=text, audio_layers=CAUSAL_REF_LAYERS)
+    card_model = QM.init_params(dims, torch.Generator(device=CARD).manual_seed(21), torch.float32, CARD)
+    models = {"card": card_model, "cpu": copy.deepcopy(card_model).to("cpu")}
+    audio = speech_pcm(4.0, seed=70).astype(np.float32) / 32768.0
+    bs = dims.block_samples
+    mels = [log_mel_spectrogram(torch.from_numpy(audio[i * bs:(i + 1) * bs]), n_mels=dims.n_mels)[None]
+            for i in range(2)]
+
+    def run(model):
+        dev = model.device
+        t = time.perf_counter()
+        tc = QM.init_tower_cache(dims, 1, device=dev)
+        xc = LM.init_cache(dims.text, 1, 96, device=dev)
+        with torch.no_grad():
+            LM.forward(model.text, LM.embed_tokens(model.text, torch.tensor([[1, 2, 3]], device=dev)),
+                       torch.zeros(1, dtype=torch.long, device=dev), xc, dims.text, last_only=True)
+        pos, logits = 3, []
+        for b in range(2):
+            _, _, lg = QM.append_audio_block(model, mels[b].to(dev), tc, xc, torch.tensor([b * dims.block_frames], device=dev),
+                                             torch.tensor([pos], device=dev), dims)
+            logits.append(lg.cpu())
+            pos += dims.block_tokens
+        toks, n, _ = QM.decode_hypothesis(model, xc, torch.tensor([[4]], device=dev), torch.tensor([pos], device=dev),
+                                          0, dims, max_new=CAUSAL_REF_STEPS)
+        return logits, toks.cpu().tolist(), n.cpu().tolist(), time.perf_counter() - t
+
+    res = {side: run(model) for side, model in models.items()}
+    with _tf32():
+        tf32 = run(card_model)
+
+    def gap(a):
+        return max((x - y).abs().max().item() for x, y in zip(a[0], res["cpu"][0]))
+    err, tf32_err = gap(res["card"]), gap(tf32)
+    top8 = [[_top8(lg) for lg in res[side][0]] for side in ("card", "cpu")]
+    holder = QC.Qwen3CausalASR(card_model, dims, max_new=CAUSAL_REF_STEPS)
+    local = _causal_words(QC.Qwen3CausalProcessor, holder, seeds=(71, 72))
+    service = QB.CausalBatchService(holder, capacity=2, window_s=0.05)
+    pooled = _causal_words(QC.Qwen3CausalProcessor, holder, seeds=(71, 72), service=service)
+    ok = (res["card"][1] == res["cpu"][1] and res["card"][2] == res["cpu"][2] and top8[0] == top8[1]
+          and err <= CAUSAL_REF_TOL < tf32_err and pooled == local and all(local)
+          and service.stats()["append"]["avg_ops_per_batch"] > 1)
+    log("reference", model=f"qwen3-asr 0.6B widths f32 random, {CAUSAL_REF_LAYERS}+{CAUSAL_REF_LAYERS} layers",
+        calls=f"2 blocks appended, a {CAUSAL_REF_STEPS}-step hypothesis", tokens=res["card"][1][0][:8],
+        n=res["card"][2], logits_max_abs_err=err, tol=CAUSAL_REF_TOL, tf32_logits_max_abs_err=tf32_err,
+        top8_equal_after_each_block=top8[0] == top8[1], card_s=round(res["card"][3], 2), cpu_s=round(res["cpu"][3], 2),
+        pooled_equals_local=pooled == local, words_per_session=[len(w) for w in local],
+        pooled_batches=service.stats(), ok=ok)
+    if not ok:
+        raise AssertionError(f"the causal reference disagrees: tokens {res['card'][1]} / {res['cpu'][1]}, "
+                             f"n {res['card'][2]} / {res['cpu'][2]}, top-8 {top8}, logits err {err} "
+                             f"(TF32 {tf32_err}, tol {CAUSAL_REF_TOL}), pooled == local "
+                             f"{pooled == local} ({pooled[0][:3]} / {local[0][:3]})")
+    del models, card_model, holder, service
+    torch.cuda.empty_cache()
+
+
+class CausalInstrumented:
+    """Wraps, for a causal run on ``service``: each op batch's runner (its
+    ops, and its wall to a synchronize, so the device's work is in it),
+    each ``decode_hypothesis`` (its steps: the text tower's one-token
+    forwards), and each session tick that ran ops (its call to its result,
+    the counterpart of the AlignAtt scheduler's word emission: a tick's
+    enqueue to its result). Restores everything on exit."""
+
+    def __init__(self, service):
+        from whisperlivekit_tpu_torch.models import llama as LM
+        from whisperlivekit_tpu_torch.models import qwen3_asr as QM
+        from whisperlivekit_tpu_torch.streaming import qwen3_causal as QC
+
+        self.LM, self.QM, self.QC, self.service = LM, QM, QC, service
+        self.batches = {op: [] for op in service.batcher._runners}  # op -> [(ops, ms)]
+        self.ticks, self.steps = [], []
+        self._fwd = 0
+
+    def __enter__(self):
+        LM, QM, QC, runners = self.LM, self.QM, self.QC, self.service.batcher._runners
+        self.real = dict(runners=dict(runners), tick=QC.Qwen3CausalProcessor._tick,
+                         decode=QM.decode_hypothesis, forward=LM.forward)
+        real = self.real
+
+        def timed(op, run):
+            def wrapped(items):
+                t = time.perf_counter()
+                out = run(items)
+                torch.cuda.synchronize()
+                self.batches[op].append((len(items), (time.perf_counter() - t) * 1e3))
+                return out
+            return wrapped
+
+        async def tick(proc, is_last):
+            n0, t = proc.n_blocks_encoded, time.perf_counter()
+            out = await real["tick"](proc, is_last)
+            if proc.n_blocks_encoded > n0:
+                self.ticks.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        def forward(*a, **k):
+            self._fwd += 1
+            return real["forward"](*a, **k)
+
+        def decode(*a, **k):  # op batches run one at a time (the batcher's lock)
+            self._fwd = 0
+            out = real["decode"](*a, **k)
+            self.steps.append(self._fwd - 1)  # the forced prefix's forward is no step
+            return out
+
+        for op, run in real["runners"].items():
+            runners[op] = timed(op, run)
+        QC.Qwen3CausalProcessor._tick, QM.decode_hypothesis, LM.forward = tick, decode, forward
+        return self
+
+    def __exit__(self, *exc):
+        self.service.batcher._runners.update(self.real["runners"])
+        self.QC.Qwen3CausalProcessor._tick = self.real["tick"]
+        self.QM.decode_hypothesis, self.LM.forward = self.real["decode"], self.real["forward"]
+
+
+def _module_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+async def _main_path_causal(name: str, config, sessions: int, seconds: float, seed: int,
+                            ws: bool, rest_wav: bytes = None, setup=None) -> dict:
+    """One engine from ``config`` served through the port's app on
+    localhost: ``sessions`` AudioProcessor sessions (and one ``WS /asr``
+    stream when ``ws``, one ``POST /v1/audio/transcriptions`` when
+    ``rest_wav``) of ``seconds`` each, fed in real time. The kernels'
+    counts are set to 0 just before the sessions start and read just after
+    they end. ``setup(engine)`` runs after the engine is built."""
+    import aiohttp
+    from aiohttp import web
+
+    from whisperlivekit_tpu_torch.engine.core import TranscriptionEngine
+    from whisperlivekit_tpu_torch.server.app import create_app
+    from whisperlivekit_tpu_torch.session.processor import AudioProcessor
+
+    t0 = time.perf_counter()
+    TranscriptionEngine.reset()
+    torch.cuda.synchronize()
+    before_engine = torch.cuda.memory_allocated()  # what earlier phases left
+    engine = TranscriptionEngine(config)
+    if engine.device.type != "cuda":
+        raise AssertionError(f"{name}: engine landed on {engine.device}, not the card")
+    load_s = time.perf_counter() - t0
+    if setup is not None:
+        setup(engine)
+    runner = web.AppRunner(create_app(config, engine=engine))
+    await runner.setup()  # startup runs the engine's warmup
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    host, port = runner.addresses[0][:2]
+    setup_s = time.perf_counter() - t0
+    service = engine.scheduler
+    ins = CausalInstrumented(service) if service is not None else contextlib.nullcontext()
+    try:
+        with ins:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_kernel_counts()  # this path's run counts from here
+            t1 = time.perf_counter()
+            pcms = [speech_pcm(seconds, seed=seed + s) for s in range(sessions + 1)]
+            procs = [AudioProcessor(transcription_engine=engine) for _ in range(sessions)]
+            async with aiohttp.ClientSession() as http:
+                jobs = [_feed_processor(p, pcm) for p, pcm in zip(procs, pcms)]
+                if ws:
+                    jobs.append(_feed_websocket(f"http://{host}:{port}/asr", pcms[-1]))
+                if rest_wav is not None:
+                    jobs.append(_post_transcription(http, f"http://{host}:{port}/v1/audio/transcriptions",
+                                                    rest_wav, "json"))
+                out = await asyncio.gather(*jobs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            counts = _kernel_counts()
+            peak = torch.cuda.max_memory_allocated()
+    finally:
+        await runner.cleanup()
+        TranscriptionEngine.reset()
+    n_lines = sessions + int(ws)
+    return dict(engine=engine, texts=out[:n_lines], rest=out[n_lines] if rest_wav is not None else None,
+                wall=wall, load_s=load_s, setup_s=setup_s, counts=counts, before_engine_bytes=before_engine,
+                base_bytes=base, peak_bytes=peak,
+                stats=service.stats() if service is not None else None,
+                ins=ins if service is not None else None)
+
+
+def _causal_solo(engine, lanes: int) -> dict:
+    """After a causal run, on its pools: one pooled decode of ``lanes`` lanes
+    alone (rows the run left), its ms and steps untraced, then traced by
+    torch.profiler (device activity only) for its launches a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisperlivekit_tpu_torch.streaming.qwen3_batch import LaneToken
+
+    service = engine.scheduler
+    items = [(LaneToken(1 + i), engine.asr.text_cache_len // 2) for i in range(lanes)]
+    with CausalInstrumented(service) as ins:
+        service._run_decode(items)  # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        service._run_decode(items)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        steps = ins.steps[-1]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            service._run_decode(items)
+            torch.cuda.synchronize()
+    ev = prof.key_averages()
+    launches = sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    return dict(lanes=lanes, ms=ms, steps=steps, ms_per_step=ms / max(steps, 1), launches=launches,
+                launches_per_step=launches / max(steps + 1, 1))
+
+
+def _over_weights(run: dict, weights: int) -> int:
+    """A served run's peak card memory over its weights: the peak less the
+    weights and what was allocated before its engine was built."""
+    return run["peak_bytes"] - run["before_engine_bytes"] - weights
+
+
+def _log_causal_run(phase: str, run: dict, model: str, solo: dict) -> list:
+    """Prints a causal run's figures; returns its words per session."""
+    engine, ins, stats = run["engine"], run["ins"], run["stats"]
+    pools = engine.scheduler.pools
+    words = [sum(len(t.split()) for t, _ in lines) for lines in run["texts"]]
+    weights = _module_bytes(engine.asr.params)
+    pool_bytes = sum(p.numel() * p.element_size() for p in (pools.tower_k, pools.tower_v, pools.text_k, pools.text_v))
+    by_op = {op: dict(batches=len(b), ops_by_batch=dict(Counter(n for n, _ in b)),
+                      ms_p50=_quantile([ms for _, ms in b], 0.5), ms_p95=_quantile([ms for _, ms in b], 0.95))
+             for op, b in ins.batches.items()}
+    log(phase, model=model, sessions=len(words), audio_s_each=CAUSAL_SECONDS, pace=PACE, words_per_session=words,
+        wall_s=round(run["wall"], 3), load_s=round(run["load_s"], 2), setup_s=round(run["setup_s"], 2))
+    for op, rec in by_op.items():
+        log(phase, op=op, **rec, avg_ops_per_batch=stats[op]["avg_ops_per_batch"])
+    log(phase, decode_steps=dict(Counter(ins.steps)), solo=f"decode of {solo['lanes']} lanes",
+        solo_ms=round(solo["ms"], 1), solo_steps=solo["steps"], ms_per_step=round(solo["ms_per_step"], 3),
+        launches_per_step=round(solo["launches_per_step"], 1))
+    # the run starts with the weights, the pools and what earlier phases left
+    # allocated; the peak over the weights is the run's peak less the weights
+    # and what was allocated before the engine was built (the pools are in it)
+    log(phase, weights_GB=round(weights / 2**30, 3), pool_lanes=pools.tower_k.shape[1] - 1,
+        pool_bytes_per_lane_MiB=round(pools.lane_bytes() / 2**20, 2), pools_GB=round(pool_bytes / 2**30, 3),
+        allocated_at_start_GB=round(run["base_bytes"] / 2**30, 3), peak_GB=round(run["peak_bytes"] / 2**30, 3),
+        peak_over_weights_GB=round(_over_weights(run, weights) / 2**30, 3),
+        peak_over_start_GB=round((run["peak_bytes"] - run["base_bytes"]) / 2**30, 3))
+    log(phase, ticks_with_ops=len(ins.ticks), word_emission_p50_ms=_quantile(ins.ticks, 0.5),
+        word_emission_p95_ms=_quantile(ins.ticks, 0.95), kernel_launches=dict(
+            flash_encoder_attn=run["counts"]["flash_encoder_attn"], xkv_splice=run["counts"]["xkv_splice"],
+            log_mel_pallas=run["counts"]["log_mel_pallas"]))
+    if not all(words):
+        raise AssertionError(f"{phase}: a session got no words: {words}")
+    if max(n for n, _ in ins.batches["append"]) < 2:
+        raise AssertionError(f"{phase}: no append batch packed two sessions: {by_op['append']}")
+    return words
+
+
+def phase_causal() -> dict:
+    """Qwen3-ASR causal on the card: the f32 reference, then the 0.6B model
+    at full width and depth in bf16 from a checkpoint directory written from
+    a seed (deleted at the end), served with the pooled lanes."""
+    import gc
+    import tempfile
+
+    from whisperlivekit_tpu_torch.engine.core import WLKConfig
+    from whisperlivekit_tpu_torch.harness import llm_checkpoints as CK
+    from whisperlivekit_tpu_torch.models import qwen3_asr as QM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_reference_causal()
+    dims = QM.Qwen3ASRDims(text=QM.QWEN3_0_6B_TEXT)
+    with tempfile.TemporaryDirectory(prefix="wlk_qwen3_") as tmp:
+        t = time.perf_counter()
+        nbytes = CK.write_checkpoint(tmp, "qwen3", dims, seed=22, dtype=torch.bfloat16, device=CARD)
+        write_s = time.perf_counter() - t
+        config = WLKConfig(backend="qwen3", backend_policy="causal", model_path=tmp, lan="en", pcm_input=True,
+                           vac=False, scheduler=True, param_dtype="bfloat16", log_level="WARNING")
+        run = asyncio.run(_main_path_causal("causal", config, CAUSAL_SESSIONS, CAUSAL_SECONDS, 80, ws=True))
+    engine = run["engine"]
+    got = engine.asr.dims
+    if (got.text != QM.QWEN3_0_6B_TEXT or got.audio_layers != 24 or got.d_audio != 1024
+            or engine.asr.params.dtype != torch.bfloat16):
+        raise AssertionError(f"the causal engine is not the 0.6B model in bf16: {got}")
+    solo = _causal_solo(engine, CAUSAL_SOLO_LANES)
+    log("causal", checkpoint_GB=round(nbytes / 2**30, 3), write_s=round(write_s, 2),
+        params_M=round(sum(p.numel() for p in engine.asr.params.parameters()) / 1e6, 1))
+    run["words"] = _log_causal_run("causal", run, "qwen3-asr 0.6B full width and depth, bf16 (seeded checkpoint)",
+                                   solo)
+    del run["engine"], run["ins"], engine  # the wrapped service holds the weights and pools
+    return run
+
+
+# ---------------------------------------------------------------------------
+# voxtral: Voxtral realtime (the causal machinery) and Voxtral offline
+# (the windowed policy over the whisper encoder, so K1)
+# ---------------------------------------------------------------------------
+
+VOX_SESSIONS = 2         # AudioProcessor sessions in process (offline: plus one REST post)
+VOX_SECONDS = 12.0
+VOX_LAYERS = 4           # audio and text depth of the served checkpoint (published widths)
+VOX_REF_LAYERS = 2       # depth of the f32 card-vs-CPU reference
+VOX_REF_STEPS = 16
+# f32 last-position logits after 2+2 layers at published widths: the sound
+# runs land near 6e-6; the same run with TF32 on must land above it
+VOX_REF_TOL = 1e-4
+# Voxtral offline's new tokens a call in the sessions and the REST post:
+# random weights never emit end-of-text, so every call would run the
+# default 128 steps; real speech ends a 2-12 s window in a few dozen
+VOX_PINNED_NEW = 32
+VOX_AB_THREADS = 2       # transcribe calls at once in the lock A/B
+
+
+def _voxtral_dims(layers: int):
+    import dataclasses
+
+    from whisperlivekit_tpu_torch.models import voxtral as VM
+
+    d = VM.VOXTRAL_MINI_3B
+    return dataclasses.replace(d, audio=dataclasses.replace(d.audio, n_audio_layer=layers),
+                               text=dataclasses.replace(d.text, n_layers=layers))
+
+
+def phase_reference_voxtral() -> None:
+    """Voxtral offline at Voxtral-Mini-3B's widths with 2+2 layers, f32, the
+    weights from one seed, on the card (K1's f32 body in the encoder) and
+    on the CPU from the same mel: the last prompt position's logits within
+    VOX_REF_TOL, their top-8 ids and VOX_REF_STEPS greedy tokens equal; the
+    card's run repeated with TF32 on must land outside VOX_REF_TOL."""
+    import copy
+
+    from whisperlivekit_tpu_torch.audio.mel import N_SAMPLES, pad_or_trim
+    from whisperlivekit_tpu_torch.models import llama as LM
+    from whisperlivekit_tpu_torch.models import voxtral as VM
+
+    dims = _voxtral_dims(VOX_REF_LAYERS)
+    card_model = VM.init_params(dims, torch.Generator(device=CARD).manual_seed(31), torch.float32, CARD)
+    models = {"card": card_model, "cpu": copy.deepcopy(card_model).to("cpu")}
+    audio = speech_pcm(8.0, seed=90).astype(np.float32) / 32768.0
+    mel = pad_or_trim(log_mel_spectrogram(torch.from_numpy(audio), n_mels=128, padding=N_SAMPLES - len(audio)),
+                      3000)[None]
+    prompt = torch.tensor([[1] + [dims.audio_token_id] * dims.audio_tokens_per_window])
+
+    def run(model):
+        dev = model.device
+        t = time.perf_counter()
+        with torch.no_grad():
+            lg, _ = VM.forward(model, prompt.to(dev), mel.to(dev), torch.zeros(1, dtype=torch.long, device=dev),
+                               LM.init_cache(dims.text, 1, prompt.shape[1], device=dev), dims, last_only=True)
+        toks = VM.greedy_generate(model, prompt.to(dev), mel.to(dev), 2, dims, VOX_REF_STEPS)
+        return lg.cpu(), toks.cpu().tolist(), time.perf_counter() - t
+
+    res = {side: run(model) for side, model in models.items()}
+    with _tf32():
+        tf32 = run(card_model)
+    err, tf32_err = ((r[0] - res["cpu"][0]).abs().max().item() for r in (res["card"], tf32))
+    top8 = [_top8(res[side][0]) for side in ("card", "cpu")]
+    ok = res["card"][1] == res["cpu"][1] and top8[0] == top8[1] and err <= VOX_REF_TOL < tf32_err
+    log("reference", model=f"voxtral-mini-3b widths f32 random, {VOX_REF_LAYERS}+{VOX_REF_LAYERS} layers",
+        calls=f"prefill of {prompt.shape[1]} tokens, {VOX_REF_STEPS} greedy steps", tokens=res["card"][1][0][:8],
+        logits_max_abs_err=err, tol=VOX_REF_TOL, tf32_logits_max_abs_err=tf32_err, top8_equal=top8[0] == top8[1],
+        card_s=round(res["card"][2], 2), cpu_s=round(res["cpu"][2], 2), ok=ok)
+    if not ok:
+        raise AssertionError(f"the voxtral reference disagrees: {res['card'][1]} / {res['cpu'][1]}, top-8 {top8}, "
+                             f"err {err} (TF32 {tf32_err}, tol {VOX_REF_TOL})")
+    del models, card_model
+    torch.cuda.empty_cache()
+
+
+def _voxtral_solo(engine) -> dict:
+    """After the offline run, on its backend: one transcribe of 8 s at the
+    default 128 new tokens alone; one at VOX_PINNED_NEW traced (device
+    activity only) for its launches a step; then the lock A/B:
+    VOX_AB_THREADS threads each transcribing once at VOX_PINNED_NEW, without
+    and with the backend's lock, in turns (unlocked, locked, locked,
+    unlocked)."""
+    import contextlib
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    asr = engine.asr.asr
+    audio = speech_pcm(8.0, seed=95).astype(np.float32) / 32768.0
+    asr.max_new_tokens = 128
+    t = time.perf_counter()
+    full = asr.transcribe(audio)
+    torch.cuda.synchronize()
+    full_ms = (time.perf_counter() - t) * 1e3
+    asr.max_new_tokens = VOX_PINNED_NEW
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        asr.transcribe(audio)
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    launches = sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    lock = asr._session_lock
+
+    def arm(locked: bool) -> float:
+        asr._session_lock = lock if locked else contextlib.nullcontext()
+        threads = [threading.Thread(target=asr.transcribe, args=(audio,)) for _ in range(VOX_AB_THREADS)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        torch.cuda.synchronize()
+        if any(th.is_alive() for th in threads):
+            raise AssertionError("a lock A/B transcribe did not finish in 120 s")
+        return time.perf_counter() - t
+
+    try:
+        ab = [(name, round(arm(name == "locked"), 3)) for name in ("unlocked", "locked", "locked", "unlocked")]
+    finally:
+        asr._session_lock = lock
+    return dict(full_ms=full_ms, full_steps=len(full["token_ids"]), launches=launches, lock_ab_s=ab)
+
+
+def phase_voxtral() -> dict:
+    """Voxtral on the card: the offline f32 reference; then one checkpoint
+    directory at Voxtral-Mini-3B's published widths with 4+4 layers, bf16,
+    written from a seed (its config.json names both the realtime and the
+    offline keys), served by Voxtral realtime (the causal machinery, pooled
+    lanes) and by Voxtral offline (the windowed policy, K1 in the
+    encoder)."""
+    import gc
+    import tempfile
+
+    from whisperlivekit_tpu_torch.engine.core import WLKConfig
+    from whisperlivekit_tpu_torch.harness import llm_checkpoints as CK
+    from whisperlivekit_tpu_torch.streaming import qwen3_causal as QC
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_reference_voxtral()
+    dims = _voxtral_dims(VOX_LAYERS)
+    kw = dict(backend="voxtral", lan="en", pcm_input=True, vac=False, param_dtype="bfloat16", log_level="WARNING")
+
+    def offline_setup(engine):
+        asr = engine.asr.asr
+        # the seeded directories hold no tokenizer: ids decode to "tN"
+        asr.text_tokenizer, asr.max_new_tokens = QC.DebugWordTokenizer(), VOX_PINNED_NEW
+        if asr.dims.text.n_layers != VOX_LAYERS or asr.dims.audio.n_audio_state != 1280:
+            raise AssertionError(f"the offline engine's dims: {asr.dims}")
+
+    with tempfile.TemporaryDirectory(prefix="wlk_voxtral_") as tmp:
+        t = time.perf_counter()
+        nbytes = CK.write_checkpoint(tmp, "voxtral", dims, seed=32, dtype=torch.bfloat16, device=CARD)
+        write_s = time.perf_counter() - t
+        rt_config = WLKConfig(backend_policy="causal", model_path=tmp, scheduler=True, **kw)
+        rt = asyncio.run(_main_path_causal("voxtral_rt", rt_config, VOX_SESSIONS, VOX_SECONDS, 100, ws=False))
+        rt_engine = rt.pop("engine")
+        got = rt_engine.asr.dims
+        if (got.d_audio, got.audio_heads, got.audio_ff, got.text, type(rt_engine.asr).__name__) != (
+                1280, 20, 5120, dims.text, "VoxtralRealtimeASR") or rt_engine.asr.params.tower.proj2 is None:
+            raise AssertionError(f"the realtime engine is not Voxtral at published widths: {got}")
+        rt_solo = _causal_solo(rt_engine, VOX_SESSIONS)
+        rt["engine"] = rt_engine
+        log("voxtral_rt", checkpoint_GB=round(nbytes / 2**30, 3), write_s=round(write_s, 2),
+            params_M=round(sum(p.numel() for p in rt_engine.asr.params.parameters()) / 1e6, 1))
+        rt["words"] = _log_causal_run("voxtral_rt", rt, f"voxtral realtime, published widths, {VOX_LAYERS}+"
+                                      f"{VOX_LAYERS} layers, bf16 (seeded checkpoint)", rt_solo)
+        del rt["engine"], rt["ins"], rt_engine  # the wrapped service holds the weights and pools
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        off_config = WLKConfig(backend_policy="windowed", model_path=tmp, **kw)
+        off = asyncio.run(_main_path_causal("voxtral", off_config, VOX_SESSIONS, VOX_SECONDS, 110, ws=False,
+                                            rest_wav=_wav_bytes(speech_pcm(VOX_SECONDS, seed=119)),
+                                            setup=offline_setup))
+    off_engine = off["engine"]
+    solo = _voxtral_solo(off_engine)
+    counts = off["counts"]
+    words = [sum(len(t.split()) for t, _ in lines) for lines in off["texts"]]
+    status, body, rest_s = off["rest"]
+    rest_text = json.loads(body).get("text", "") if status == 200 else ""
+    weights = _module_bytes(off_engine.asr.asr.params)
+    log("voxtral", model=f"voxtral offline, published widths, {VOX_LAYERS}+{VOX_LAYERS} layers, bf16, "
+        f"windowed policy, {VOX_PINNED_NEW} new tokens a call", sessions=len(words), audio_s_each=VOX_SECONDS,
+        words_per_session=words, wall_s=round(off["wall"], 3), load_s=round(off["load_s"], 2),
+        weights_GB=round(weights / 2**30, 3), allocated_at_start_GB=round(off["base_bytes"] / 2**30, 3),
+        peak_over_weights_GB=round(_over_weights(off, weights) / 2**30, 3),
+        peak_over_start_GB=round((off["peak_bytes"] - off["base_bytes"]) / 2**30, 3))
+    log("voxtral", endpoint="'rest json'", status=status, wall_s=round(rest_s, 3), words=len(rest_text.split()))
+    log("voxtral", solo="transcribe 8 s, 128 new tokens", ms=round(solo["full_ms"], 1), steps=solo["full_steps"],
+        ms_per_step=round(solo["full_ms"] / max(solo["full_steps"], 1), 3),
+        launches_per_step_at_32=round(solo["launches"] / VOX_PINNED_NEW, 1))
+    log("voxtral", lock_ab=f"{VOX_AB_THREADS} threads x 1 transcribe of {VOX_PINNED_NEW} tokens",
+        arms_s=solo["lock_ab_s"])
+    log("voxtral", kernel="flash_encoder_attn", launches=counts["flash_encoder_attn"],
+        launches_by_SxT={f"{s}x{t}": n for (s, t), n in sorted(counts["k1_shapes"].items())})
+    _check_k1_bodies("voxtral", counts)
+    if not all(words) or status != 200 or not rest_text:
+        raise AssertionError(f"voxtral offline: words {words}, REST {status} {rest_text[:40]!r}")
+    if not counts["flash_encoder_attn"]:
+        raise AssertionError("K1 never launched in the voxtral phase")
+    off["rt"] = rt
+    del off["engine"], off_engine
+    return off
+
+
+def phase_kernels_voxtral(launched: dict) -> dict:
+    """K1 in bf16 at every (S, T) the Voxtral offline run launched it: the
+    whisper-large encoder's full window, 20 heads, at one lane (a
+    transcribe call encodes one window). Fails on a launched (S, T) it did
+    not check."""
+    records = {}
+    for S, T in sorted(launched):
+        if (S, T) != (1500, 1500):
+            raise AssertionError(f"the voxtral run launched K1 at an unchecked shape {(S, T)}")
+        records[(S, T)] = _check_k1("voxtral encoder full window", "voxtral", S, T, T, False, torch.bfloat16, 1, LH)
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--k3-ab", metavar="LOG_MEL_CU", default=None,
@@ -2971,6 +3605,9 @@ def main(argv=None) -> int:
     la_records = timed("kernels_la", phase_kernels_la, la["counts"]["k1_shapes"])
     dt = timed("diar_tr", phase_diar_tr, main_run)
     dt_records = timed("kernels_diar_tr", phase_kernels_diar_tr, dt["counts"]["k1_shapes"])
+    timed("causal", phase_causal)
+    vox = timed("voxtral", phase_voxtral)
+    vox_records = timed("kernels_voxtral", phase_kernels_voxtral, vox["counts"]["k1_shapes"])
     large_records = timed("kernels_large", phase_kernels_large,
                           {"large-v3": large["geom"], "large-v3 f8": f8["geom"], LOAD_MODEL: load["geom"]},
                           Counter(large["counts"]["k1_shapes"]) + Counter(f8["counts"]["k1_shapes"])
@@ -2997,6 +3634,7 @@ def main(argv=None) -> int:
     k1_errs += [r["max_abs_err"] for r in beam_records.values()]
     k1_errs += [r["max_abs_err"] for r in la_records.values()]
     k1_errs += [r["max_abs_err"] for r in dt_records.values()]
+    k1_errs += [r["max_abs_err"] for r in vox_records.values()]
     k1 = large_records[("flash_encoder_attn", 1500, 1500, "bfloat16")]
     G = large["geom"]["group_width"]
     L = large["geom"]["n_text_layer"]
@@ -3011,7 +3649,8 @@ def main(argv=None) -> int:
                                        "beam": beam["counts"]["flash_encoder_attn"],
                                        "load": load["counts"]["flash_encoder_attn"],
                                        "la": la["counts"]["flash_encoder_attn"],
-                                       "diar_tr": dt["counts"]["flash_encoder_attn"]},
+                                       "diar_tr": dt["counts"]["flash_encoder_attn"],
+                                       "voxtral": vox["counts"]["flash_encoder_attn"]},
                 "xkv_splice": {"large": large["counts"]["xkv_splice"], "f8": f8["counts"]["xkv_splice"],
                                "load": load["counts"]["xkv_splice"]},
                 "log_mel_pallas": {"front": front["counts"]["log_mel_pallas"],

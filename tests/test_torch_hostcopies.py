@@ -2,8 +2,8 @@
 CLI, tokenizer, session plane, VAD, web page, native PCM runtime, audio IO,
 WER and normalizers, the Deepgram adapter, the WS test client, the decoding
 options and writers, DTW, the windowed policy, the session proxy, the
-energy, embedding and diart diarization backends, the translation base and
-the AlignAtt sidecar client) against
+energy, embedding and diart diarization backends, the translation base,
+the AlignAtt sidecar client and the OpenAI-API cloud backend) against
 the modules they were copied from: the same public names, and one sample of
 behaviour each that agrees on the same inputs."""
 
@@ -26,7 +26,7 @@ MODULES = (
     "server.deepgram_compat", "test_client",
     "decoding.options", "decoding.writers", "ops.dtw", "streaming.windowed",
     "streaming.session_proxy", "diarization.energy", "diarization.embedding", "diarization.diart",
-    "translation.base", "translation.alignatt_client",
+    "translation.base", "translation.alignatt_client", "streaming.cloud_backend",
 )
 
 
@@ -293,7 +293,62 @@ def _alignatt_client(m):
     return m.LATENCY_PRESETS, c.url, c.preset, words, (tr.start, tr.end, tr.text), buf.text, c._committed_words
 
 
+def _cloud_backend(m):
+    """One ``transcribe`` against an in-process fake
+    ``/v1/audio/transcriptions`` (localhost) that answers with what it was
+    sent: the path, the bearer token, the form fields and the WAV's bytes;
+    then the words it returns, one under a no-speech segment (``use_vad``)."""
+    import json
+    import threading
+    from http.server import BaseHTTPRequestHandler, HTTPServer
+
+    class FakeAPI(BaseHTTPRequestHandler):
+        def do_POST(self):
+            body = self.rfile.read(int(self.headers["Content-Length"]))
+            boundary = self.headers["Content-Type"].split("boundary=")[1].encode()
+            fields, wav = {}, b""
+            for part in body.split(b"--" + boundary)[1:-1]:
+                head, _, value = part.strip(b"\r\n").partition(b"\r\n\r\n")
+                name = head.split(b'name="')[1].split(b'"')[0].decode()
+                if b"filename=" in head:
+                    wav = value
+                else:
+                    fields[name] = value.decode()
+            res = {"path": self.path, "auth": self.headers.get("Authorization"), "fields": fields,
+                   "wav_bytes": len(wav), "wav_head": list(wav[:44]), "wav_sum": sum(wav),
+                   "words": [{"word": " un", "start": 0.0, "end": 0.4}, {"word": " deux", "start": 0.5, "end": 0.9},
+                             {"word": " trois", "start": 1.2, "end": 1.5}],
+                   "segments": [{"start": 0.0, "end": 1.0, "no_speech_prob": 0.1},
+                                {"start": 1.1, "end": 1.6, "no_speech_prob": 0.9}]}
+            payload = json.dumps(res).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(payload)))
+            self.end_headers()
+            self.wfile.write(payload)
+
+        def log_message(self, *a):
+            pass
+
+    srv = HTTPServer(("127.0.0.1", 0), FakeAPI)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        asr = m.CloudWhisperASR(language="fr", base_url=f"http://127.0.0.1:{srv.server_port}/v1", api_key="k1")
+        asr.use_vad()
+        audio = np.sin(np.arange(24000) / 7.0).astype(np.float32) * 1.2
+        res = asr.transcribe(audio, init_prompt="bonjour")
+        asr.task = "translate"
+        path = asr.transcribe(audio[:8000])["path"]
+    finally:
+        srv.shutdown()
+        thread.join(timeout=10)
+    words = [(t.start, t.end, t.text) for t in asr.ts_words(res)]
+    return res, path, words, asr.segments_end_ts(res), asr.transcribed_seconds, m._wav_bytes(audio[:100])
+
+
 SAMPLES = {
+    "streaming.cloud_backend": _cloud_backend,
     "diarization.energy": _energy, "diarization.embedding": _embedding, "diarization.diart": _diart,
     "translation.base": _translation_base, "translation.alignatt_client": _alignatt_client,
     "decoding.options": _options, "decoding.writers": _writers, "ops.dtw": _dtw,

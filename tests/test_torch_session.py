@@ -298,7 +298,10 @@ def test_port_imports_without_jax():
                  "decoding.transcribe", "ops.dtw", "streaming.local_agreement",
                  "streaming.windowed", "streaming.session_proxy", "diarization.sortformer",
                  "diarization.sortformer_model", "diarization.diart", "translation.nllb",
-                 "translation.nllb_model", "translation.alignatt_client"):
+                 "translation.nllb_model", "translation.alignatt_client", "models.llama",
+                 "models.qwen3_asr", "models.voxtral", "models.voxtral_backend", "engine.op_batcher",
+                 "streaming.qwen3_causal", "streaming.qwen3_batch", "streaming.voxtral_realtime",
+                 "streaming.cloud_backend", "harness.llm_checkpoints"):
         assert f"whisperlivekit_tpu_torch.{name}" in imported, name
 
 

@@ -12,6 +12,16 @@ seeded ``torch.Generator`` (the numbers differ from the JAX package's
 ``PRNGKey(0)`` weights; parity tests bridge JAX weights through
 ``params_from_jax_numpy`` or load one checkpoint in both packages).
 
+The other transcription backends route as in the JAX engine: ``qwen3``
+(Qwen3-ASR causal, ``streaming/qwen3_causal.py``, pooled through
+``streaming/qwen3_batch.py``'s ``CausalBatchService`` when
+``scheduler``), ``voxtral`` under ``backend_policy`` causal/realtime
+(``streaming/voxtral_realtime.py``, the same machinery) or otherwise the
+windowed policy over ``models/voxtral_backend.py``, and ``openai-api``
+(``streaming/cloud_backend.py`` under LocalAgreement). Their weights load
+on the engine's device in ``param_dtype`` (the JAX engine loads Qwen3 and
+Voxtral realtime in f32 whatever it says).
+
 Diarization (``diarization/``: Sortformer on the engine's device, the
 energy, embedding and diart backends) and translation (``translation/``:
 NLLB on the engine's device, loaded once on its first session; the AlignAtt
@@ -19,7 +29,7 @@ sidecar client; echo when the NLLB weights are absent) build their shared
 models here, as the JAX engine does.
 
 What is not ported yet raises NotImplementedError naming the module: the
-cloud, Qwen3 and Voxtral backends and the batched JAX VAD.
+batched JAX VAD.
 """
 
 from __future__ import annotations
@@ -164,6 +174,38 @@ class LocalAgreementASR:
         )
 
 
+class CloudASRHolder(LocalAgreementASR):
+    """Backend holder for the OpenAI-compatible cloud API (reference
+    local_agreement/backends.py:222-287): LocalAgreement policy over a
+    remote /v1/audio/transcriptions — no local weights at all."""
+
+    def __init__(self, config: WLKConfig):
+        from ..streaming.cloud_backend import CloudWhisperASR
+
+        self.config = config
+        self.dims = None
+        self.decoder = None
+        self.asr = CloudWhisperASR(
+            language=config.lan,
+            model_name=(
+                config.model_size if config.model_size and not str(
+                    config.model_size).startswith("random:") else "whisper-1"
+            ),
+            base_url=getattr(config, "openai_base_url", None),
+        )
+        if config.direct_english_translation:
+            self.asr.direct_english_translation = True
+
+
+class VoxtralHolder:
+    """Backend holder for the Voxtral audio-LLM (windowed streaming)."""
+
+    sep = ""
+
+    def __init__(self, asr):
+        self.asr = asr
+
+
 class TranscriptionEngine:
     """Thread-safe singleton (reference core.py:37-79)."""
 
@@ -208,12 +250,55 @@ class TranscriptionEngine:
         self._session_lock = threading.Lock()
         self.scheduler = None
 
-        if config.transcription:
-            if config.backend not in ("auto", "jax", "torch") and config.backend:
-                raise NotImplementedError(
-                    f"backend {config.backend!r} (streaming/qwen3_*, models/voxtral*, "
-                    "streaming/cloud_backend.py) is not ported yet"
+        backend = config.backend or ""
+        dtype = _dtype_from_str(config.param_dtype)
+        if config.transcription and backend == "openai-api":
+            self.asr = CloudASRHolder(config)
+            logger.info("Loaded OpenAI-compatible cloud backend (LocalAgreement)")
+        elif config.transcription and backend.startswith("qwen3"):
+            if getattr(config, "qwen3_audio_backend", "causal") == "windowed":
+                logger.warning(
+                    "qwen3 windowed re-encode mode is served by the causal "
+                    "tower on this build (the windowed policy exists for "
+                    "whisper backends via --backend-policy windowed); "
+                    "continuing with causal"
                 )
+            from ..streaming.qwen3_causal import load_qwen3_causal
+
+            self.asr = load_qwen3_causal(config, device=self.device, dtype=dtype)
+            if config.scheduler:
+                from ..streaming.qwen3_batch import CausalBatchService
+
+                # pooled KV is ~118 MB/lane at 0.6b scale; cap the lane count
+                self.scheduler = CausalBatchService(
+                    self.asr, capacity=min(config.max_batch_sessions, 32)
+                )
+            logger.info("Loaded Qwen3-ASR causal backend (append-only tower) on %s", self.device)
+        elif config.transcription and backend.startswith("voxtral"):
+            if config.backend_policy in ("causal", "realtime"):
+                from ..streaming.voxtral_realtime import load_voxtral_realtime
+
+                self.asr = load_voxtral_realtime(config, device=self.device, dtype=dtype)
+                if config.scheduler:
+                    from ..streaming.qwen3_batch import CausalBatchService
+
+                    self.scheduler = CausalBatchService(
+                        self.asr, capacity=min(config.max_batch_sessions, 16)
+                    )  # 4B-scale tower: larger per-lane KV
+                logger.info("Loaded Voxtral realtime backend (causal streaming) on %s", self.device)
+            else:
+                from ..models.voxtral_backend import VoxtralASR, load_voxtral
+
+                params, vdims, tok = load_voxtral(config.model_path, dtype=dtype, device=self.device)
+                self.asr = VoxtralHolder(
+                    VoxtralASR(
+                        params, vdims, tok,
+                        buffer_trimming=config.buffer_trimming,
+                        buffer_trimming_sec=config.buffer_trimming_sec,
+                    )
+                )
+                logger.info("Loaded Voxtral backend (windowed streaming policy) on %s", self.device)
+        elif config.transcription:
             model, dims, name = load_whisper_params(config, self.device)
             if config.backend_policy in ("localagreement", "windowed"):
                 self.asr = LocalAgreementASR(config, model, dims, name)
@@ -285,7 +370,28 @@ class TranscriptionEngine:
         if self.asr is None:
             return
         proc = online_factory(self.config, self.asr, scheduler=self.scheduler)
-        _warm(proc, np.zeros(16000, np.float32))
+        audio = np.zeros(16000, np.float32)
+        if getattr(proc, "process_iter_async", None) is not None and getattr(
+            proc, "service", None
+        ) is not None:
+            # pooled causal path: run the batched ops when we own the loop;
+            # inside a running loop (server startup) warm the local-cache
+            # path instead — still fail-loud, and the pooled ops first run
+            # on the first session
+            import asyncio
+
+            async def _pooled():
+                proc.insert_audio_chunk(audio, 1.0)
+                await proc.process_iter_async(is_last=True)
+
+            try:
+                asyncio.get_running_loop()
+            except RuntimeError:
+                asyncio.run(_pooled())
+            else:
+                _warm(online_factory(self.config, self.asr), audio)
+        else:
+            _warm(proc, audio)
         if hasattr(proc, "close"):
             proc.close()  # release the pooled lanes the warmup session held
         logger.info("Engine warmup complete")
@@ -316,6 +422,20 @@ def _warm(proc, audio) -> None:
 
 
 def online_factory(config: WLKConfig, asr, language: Optional[str] = None, scheduler=None):
+    from ..streaming.qwen3_causal import Qwen3CausalASR, Qwen3CausalProcessor
+    from ..streaming.voxtral_realtime import VoxtralRealtimeASR, VoxtralRealtimeProcessor
+
+    causal_service = None
+    if scheduler is not None and hasattr(scheduler, "pools"):
+        causal_service = scheduler  # CausalBatchService
+    if isinstance(asr, VoxtralRealtimeASR):  # subclass: check before the base
+        return VoxtralRealtimeProcessor(asr, service=causal_service)
+    if isinstance(asr, Qwen3CausalASR):
+        return Qwen3CausalProcessor(asr, service=causal_service)
+    if isinstance(asr, VoxtralHolder):
+        from ..streaming.windowed import WindowedStreamingProcessor
+
+        return WindowedStreamingProcessor(asr.asr)
     if isinstance(asr, LocalAgreementASR):
         from ..streaming.local_agreement import OnlineASRProcessor
         from ..streaming.windowed import WindowedStreamingProcessor

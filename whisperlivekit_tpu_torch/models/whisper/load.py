@@ -96,6 +96,27 @@ def _read_safetensors_dir(path: Path) -> Dict[str, torch.Tensor]:
     return tensors
 
 
+def write_safetensors(path: Path, tensors: Dict[str, torch.Tensor]) -> int:
+    """Write ``tensors`` as one .safetensors file (the layout
+    ``_read_safetensors_file`` reads, the header padded with spaces to 8
+    bytes as the ``safetensors`` package writes it), one tensor at a time
+    through the host. Returns the file's size in bytes."""
+    names = {v: k for k, v in _SAFETENSORS_DTYPES.items()}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return 8 + len(blob) + offset
+
+
 def _read_torch_pt(path: Path) -> Tuple[Dict[str, torch.Tensor], Optional[dict]]:
     # weights_only: a published {"dims": dict, "model_state_dict": ...}
     # checkpoint holds only tensors and plain containers

@@ -1,0 +1,244 @@
+"""Session-level batching for causal backends (qwen3 / voxtral-realtime)
+(port of whisperlivekit_tpu/streaming/qwen3_batch.py).
+
+Tower KV and decoder KV live in device-resident lane pools; sessions issue
+typed ops (prime / append / decode) through an OpBatcher, so concurrent
+sessions' blocks encode in ONE device call and their hypotheses decode in
+another — the causal-mode analog of the AlignAtt batch scheduler.
+
+Lane heterogeneity (per-lane frames_filled / text_pos) is native to the
+compute functions (models/qwen3_asr.py takes [B] position vectors). The
+pools are written IN PLACE (JAX donates them): an append gathers its
+lanes' rows into a copy, runs the block there and scatters the rows back;
+a decode runs on a gathered copy only, since the hypothesis region is
+disposable (overwritten by the next block) — pool rows stay untouched.
+
+Duplicate scatter indices never reach a live lane: a batch's padding rows
+and the ops of closed sessions all address the scratch row 0 (which no
+session is given), while the live lanes of one batch are distinct (each
+session's ops run one at a time, and a lane belongs to one session). Which
+duplicate write wins on the scratch row is unspecified, as in XLA, and
+nothing reads it for a live lane.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..audio.mel import log_mel_spectrogram
+from ..engine.op_batcher import OpBatcher
+from ..models import llama as lm
+from ..models import qwen3_asr as qm
+
+logger = logging.getLogger(__name__)
+
+
+class LaneToken:
+    """A session's claim on a pool lane. ``alive`` flips False at close();
+    any of the session's ops still queued in the batcher then execute
+    against the scratch row instead of a possibly re-acquired lane."""
+
+    __slots__ = ("lane", "alive")
+
+    def __init__(self, lane: int):
+        self.lane = lane
+        self.alive = True
+
+
+class CausalPools:
+    """Per-lane tower + decoder KV pools on ``device``. Row 0 is scratch
+    (batch padding).
+
+    Tower rows are sized to the segment policy's admitted window
+    (window_blocks x block_frames), not the 30 s architectural max — at 15 s
+    windows that halves the largest allocation in the engine."""
+
+    SCRATCH = 0
+
+    def __init__(self, dims: qm.Qwen3ASRDims, capacity: int, text_cache_len: int,
+                 dtype=torch.float32, tower_frames: int = 0, device="cpu"):
+        L, H = dims.audio_layers, dims.audio_heads
+        dh = dims.d_audio // H
+        C = capacity + 1
+        frames = min(tower_frames or dims.max_frames, dims.max_frames)
+        kw = dict(dtype=dtype, device=device)
+        self.tower_k = torch.zeros((L, C, frames, H, dh), **kw)
+        self.tower_v = torch.zeros((L, C, frames, H, dh), **kw)
+        t = dims.text
+        shape = (t.n_layers, C, text_cache_len, t.n_kv_heads, t.head_dim)
+        self.text_k = torch.zeros(shape, **kw)
+        self.text_v = torch.zeros(shape, **kw)
+        self._free = list(range(1, C))
+
+    def acquire(self) -> Optional[int]:
+        return self._free.pop() if self._free else None
+
+    def release(self, lane: int) -> None:
+        if lane != self.SCRATCH:
+            self._free.append(lane)
+
+    def lane_bytes(self) -> int:
+        """Card bytes one lane holds across the four pools."""
+        return sum(p[:, 0].numel() * p.element_size()
+                   for p in (self.tower_k, self.tower_v, self.text_k, self.text_v))
+
+
+# ---------------------------------------------------------------------------
+# Pooled device calls
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def _prime_pooled(model, pools: CausalPools, lanes: torch.Tensor, prompt: torch.Tensor,
+                  dims: qm.Qwen3ASRDims) -> None:
+    """Zero the lanes' decoder rows and prefill the prompt, in place."""
+    B = lanes.shape[0]
+    tk = pools.text_k
+    cache = lm.LlamaCache(torch.zeros((tk.shape[0], B) + tk.shape[2:], dtype=tk.dtype, device=tk.device),
+                          torch.zeros((tk.shape[0], B) + tk.shape[2:], dtype=tk.dtype, device=tk.device))
+    lm.forward(model.text, lm.embed_tokens(model.text, prompt),
+               torch.zeros(B, dtype=torch.long, device=lanes.device), cache, dims.text, last_only=True)
+    pools.text_k[:, lanes] = cache.k
+    pools.text_v[:, lanes] = cache.v
+
+
+@torch.no_grad()
+def _append_pooled(model, pools: CausalPools, lanes: torch.Tensor, audio: torch.Tensor,
+                   start_frame: torch.Tensor, text_pos: torch.Tensor, active: torch.Tensor,
+                   dims: qm.Qwen3ASRDims) -> None:
+    """One causal block per lane, encoded + fed to the decoder, in one call
+    (the mel computed from the raw blocks, each lane with its own floor).
+    Inactive (padding) lanes write only to the scratch row."""
+    mel = log_mel_spectrogram(audio, n_mels=dims.n_mels)
+    tc = qm.TowerCache(pools.tower_k[:, lanes], pools.tower_v[:, lanes])   # gathered copies
+    xc = lm.LlamaCache(pools.text_k[:, lanes], pools.text_v[:, lanes])
+    qm.append_audio_block(model, mel, tc, xc, start_frame, text_pos, dims)
+    safe = torch.where(active, lanes, torch.full_like(lanes, CausalPools.SCRATCH))
+    pools.tower_k[:, safe] = tc.k
+    pools.tower_v[:, safe] = tc.v
+    pools.text_k[:, safe] = xc.k
+    pools.text_v[:, safe] = xc.v
+
+
+@torch.no_grad()
+def _decode_pooled(model, pools: CausalPools, lanes: torch.Tensor, start_tokens: torch.Tensor,
+                   text_pos: torch.Tensor, dims: qm.Qwen3ASRDims, eos_id: int, max_new: int):
+    """Greedy hypotheses for B lanes from their pooled audio prefixes.
+    The hypothesis KV lands in the gathered COPY only — pool rows stay
+    untouched (disposable-hypothesis contract)."""
+    xc = lm.LlamaCache(pools.text_k[:, lanes], pools.text_v[:, lanes])
+    tokens, n, _ = qm.decode_hypothesis(model, xc, start_tokens, text_pos, eos_id, dims, max_new=max_new)
+    return tokens, n
+
+
+# ---------------------------------------------------------------------------
+# The op service
+# ---------------------------------------------------------------------------
+
+
+class CausalBatchService:
+    """Shared per-engine service: pools + batched op runners. Sessions call
+    the async ops; the OpBatcher packs concurrent sessions per op type."""
+
+    def __init__(self, holder, capacity: int = 32, window_s: float = 0.01):
+        self.holder = holder
+        self.dims = holder.dims
+        self.device = holder.device
+        blocks = self.dims.window_blocks(holder.window_s)
+        self.pools = CausalPools(
+            self.dims, capacity, holder.text_cache_len, holder.params.dtype,
+            tower_frames=(blocks + 1) * self.dims.block_frames, device=self.device,
+        )
+        self.batcher = OpBatcher(window_s=window_s)
+        self.batcher.register("prime", self._run_prime)
+        self.batcher.register("append", self._run_append)
+        self.batcher.register("decode", self._run_decode)
+
+    # -- async session-facing ops. Each payload carries the session's lane
+    # TOKEN: a disconnect can leave ops queued after the worker task is
+    # cancelled, and the lane may be re-acquired — dead ops must not touch it.
+
+    async def prime(self, token: "LaneToken", ctx_ids: Optional[List[int]] = None) -> None:
+        await self.batcher.submit("prime", (token, list(ctx_ids or [])))
+
+    async def append(self, token: "LaneToken", block: np.ndarray,
+                     start_frame: int, text_pos: int) -> None:
+        await self.batcher.submit("append", (token, block, start_frame, text_pos))
+
+    async def decode(self, token: "LaneToken", text_pos: int) -> List[int]:
+        return await self.batcher.submit("decode", (token, text_pos))
+
+    def stats(self) -> dict:
+        return self.batcher.stats()
+
+    # -- batch runners (one device call each, in a worker thread) ----------------
+
+    @staticmethod
+    def _pad(n: int) -> int:
+        return 1 << (n - 1).bit_length()
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _run_prime(self, items: List[Tuple["LaneToken", List[int]]]) -> List[None]:
+        tokens = [it[0] for it in items]
+        lanes = [t.lane if t.alive else CausalPools.SCRATCH for t in tokens]
+        B = self._pad(len(lanes))
+        lane_arr = np.full(B, CausalPools.SCRATCH, np.int64)
+        lane_arr[: len(lanes)] = lanes
+        # per-lane carry context, right-padded to the holder's fixed budget:
+        # padded positions sit at cache indices >= the lane's text_pos, are
+        # masked by the position-causal mask (llama.py forward) and are
+        # overwritten by the next audio block's sequential writes — so one
+        # prime shape serves every carry length
+        ctx_budget = getattr(self.holder, "ctx_budget", 0)
+        prompt = np.tile(np.asarray(self.holder.prompt_ids, np.int64), (B, 1))
+        if ctx_budget:
+            ctx = np.zeros((B, ctx_budget), np.int64)
+            for i, (_, ids) in enumerate(items):
+                ids = list(ids)[:ctx_budget]
+                ctx[i, : len(ids)] = ids
+            prompt = np.concatenate([prompt, ctx], axis=1)
+        _prime_pooled(self.holder.params, self.pools, self._tensor(lane_arr), self._tensor(prompt), self.dims)
+        return [None] * len(lanes)
+
+    def _run_append(self, items: List[Tuple]) -> List[None]:
+        d = self.dims
+        B = self._pad(len(items))
+        lanes = np.full(B, CausalPools.SCRATCH, np.int64)
+        audio = np.zeros((B, d.block_samples), np.float32)
+        start = np.zeros(B, np.int64)
+        tpos = np.zeros(B, np.int64)
+        active = np.zeros(B, bool)
+        for i, (token, block, sf, tp) in enumerate(items):
+            alive = token.alive
+            lanes[i] = token.lane if alive else CausalPools.SCRATCH
+            start[i], tpos[i], active[i] = sf, tp, alive
+            audio[i] = block
+        _append_pooled(
+            self.holder.params, self.pools, self._tensor(lanes), self._tensor(audio),
+            self._tensor(start), self._tensor(tpos), self._tensor(active), d,
+        )
+        return [None] * len(items)
+
+    def _run_decode(self, items: List[Tuple]) -> List[List[int]]:
+        h = self.holder
+        B = self._pad(len(items))
+        lanes = np.full(B, CausalPools.SCRATCH, np.int64)
+        tpos = np.zeros(B, np.int64)
+        for i, (token, tp) in enumerate(items):
+            lanes[i] = token.lane if token.alive else CausalPools.SCRATCH
+            tpos[i] = tp
+        start = np.tile(np.asarray(h.hyp_start_ids, np.int64), (B, 1))
+        toks, n = _decode_pooled(
+            h.params, self.pools, self._tensor(lanes), self._tensor(start), self._tensor(tpos),
+            self.dims, h.eos_id, h.max_new,
+        )
+        toks, n = toks.cpu().numpy(), n.cpu().numpy()
+        return [
+            [int(x) for x in toks[i][: int(n[i])]] for i in range(len(items))
+        ]
