@@ -163,7 +163,32 @@ Phases (each prints lines; any failure raises and exits non-zero):
              prints a transcribe's ms and launches a step alone and the
              backend lock's A/B. Then K1 in bf16 against its plain version
              at every (S, T) that run launched.
-13. kernels — the large form's kernels at the shapes its engines give them:
+13. train   — the structured-weights trainer (harness/train_structured.py,
+             parallel/train.py): the train step at base widths with 2+2
+             layers, f32, batch 2, on the card against the CPU (every
+             step's loss, every gradient of the first, the weights after
+             three AdamW steps under the trainer's warmup-cosine schedule;
+             without and with alignment supervision; no kernel launched);
+             then the trainer through its entry point at full base width
+             (6+6 layers, f32, batch 8, 30 s windows, 48 tokens) on a
+             small generated dataset in a temporary directory. Checks that
+             every loss is finite, that the mean of the last 10 is below
+             the first, that no kernel launched inside a train step and
+             that every encoder q/k/v weight got a gradient; prints ms a
+             step, peak card memory, the losses, and the bf16 eval's greedy
+             token accuracy and alignment sharpness (K1 may launch there).
+             The npz must read back bit for bit as the native directory
+             saved beside it; the native directory is then served
+             (TranscriptionEngine(model_path=...), two AudioProcessor
+             sessions fed the trainer's event audio in real time, with
+             ``profile_dir``). Checks that no tick failed, that K1
+             launched and that the first ticks' trace holds the card's
+             kernels and the CPU's ops; prints each
+             session's words and WER against the events' words, the kept
+             tokens per lane tick and the ticks' stop reasons (end of text
+             among them). Then K1 in bf16 against its plain version at every
+             (S, T) that run launched.
+14. kernels — the large form's kernels at the shapes its engines give them:
              K1 at the encoder's two shapes, every prefix bucket over the
              dense cross-KV and over the pool, and both refresh widths, and
              at every (S, T) the large, f8 and load runs launched; K2
@@ -3572,6 +3597,281 @@ def phase_kernels_voxtral(launched: dict) -> dict:
     return records
 
 
+# ---------------------------------------------------------------------------
+# train: the structured-weights trainer, its checkpoint and serving it
+# ---------------------------------------------------------------------------
+
+TRAIN_REF_LAYERS = 2     # encoder and decoder depth of the f32 card-vs-CPU reference (base widths)
+TRAIN_REF_BATCH = 2
+TRAIN_REF_STEPS = 3
+TRAIN_ATOL, TRAIN_RTOL, TRAIN_LOSS_TOL = 2e-5, 1e-4, 2e-5  # the CPU parity tests' bars
+TRAIN_STEPS = 60         # the full-width trainer's steps in the smoke (base, 6+6 layers, f32, batch 8)
+TRAIN_BATCH = 8
+TRAIN_DATASET_BATCHES = 2
+TRAIN_TOK_LEN = 48
+TRAIN_LR = 1e-3          # the trainer's default
+TRAIN_SESSIONS = 2       # AudioProcessor sessions on the trained checkpoint
+TRAIN_SECONDS = 12.0
+
+
+def _excess(got: torch.Tensor, want: torch.Tensor) -> float:
+    """How far ``got`` is outside rtol of ``want``: at most TRAIN_ATOL to pass."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() - TRAIN_RTOL * want.abs()).max())
+
+
+def phase_reference_train(tok, word_ids) -> None:
+    """The train step in f32 at base widths with 2+2 layers, batch 2, on the
+    card against the CPU, from the same scaffolded weights and the same
+    three batches of the trainer's data: the loss of each step, every
+    gradient of the first, and the weights after three AdamW steps under
+    the trainer's warmup-cosine schedule (``--steps 400``: lr 0, then
+    2.5e-5, 5e-5), without and with alignment supervision. The card runs
+    no kernel here."""
+    import dataclasses
+
+    from whisperlivekit_tpu_torch.harness import train_structured as TS
+    from whisperlivekit_tpu_torch.models.whisper import model as wm
+    from whisperlivekit_tpu_torch.models.whisper.dims import MODEL_DIMS, default_alignment_heads
+    from whisperlivekit_tpu_torch.parallel import train as T
+
+    dims = dataclasses.replace(MODEL_DIMS["base"], n_audio_layer=TRAIN_REF_LAYERS, n_text_layer=TRAIN_REF_LAYERS)
+    n_words = len(word_ids)
+    prompt_len = len(tok.sot_sequence_including_notimestamps)
+    batches = [TS.make_batch(tok, word_ids, n_words, [20_000 + TRAIN_REF_BATCH * i + j for j in range(TRAIN_REF_BATCH)],
+                             TRAIN_TOK_LEN, dims.n_mels, device="cpu") for i in range(TRAIN_REF_STEPS)]
+    lo, hi = TS.align_windows(prompt_len, TRAIN_TOK_LEN, len(TS.schedule(0, TS.WIN_S - 1.0, n_words)))
+    for align_on in (False, True):
+        runs = {}
+        for side, dev in (("card", CARD), ("cpu", "cpu")):
+            model = wm.init_params(dims, torch.Generator().manual_seed(7), torch.float32, "cpu")
+            model = TS.align_scaffold(model, dims, prompt_len).to(dev)
+            tx = T.make_optimizer(T.warmup_cosine_decay_schedule(0.0, TRAIN_LR, 40, 400, TRAIN_LR * 0.05))
+            state = T.TrainState(model, tx.init(model), 0)
+            align = ((wm.AlignSpec.from_pairs(default_alignment_heads(dims), device=dev),
+                      torch.from_numpy(lo).to(dev), torch.from_numpy(hi).to(dev), 1.0) if align_on else ())
+            before = sum(_kernel_counts()[k] for k in ("flash_encoder_attn", "xkv_splice", "log_mel_pallas"))
+            losses, grads = [], None
+            for i, (mel, tokens) in enumerate(batches):
+                state, loss = T.train_step(state, torch.from_numpy(mel).to(dev), torch.from_numpy(tokens).to(dev),
+                                           dims, tx, *align)
+                losses.append(loss.item())
+                if i == 0:
+                    grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+            launched = sum(_kernel_counts()[k] for k in ("flash_encoder_attn", "xkv_splice", "log_mel_pallas")) - before
+            runs[side] = (losses, grads, {n: p.detach().cpu() for n, p in model.named_parameters()}, launched)
+        (gl, gg, gw, g_launched), (cl, cg, cw, _) = runs["card"], runs["cpu"]
+        loss_err = max(abs(a - b) for a, b in zip(gl, cl))
+        grad_excess = max(_excess(gg[n], cg[n]) for n in cg)
+        weight_excess = max(_excess(gw[n], cw[n]) for n in cw)
+        grad_abs = max(float((gg[n] - cg[n]).abs().max()) for n in cg)
+        ok = (loss_err <= TRAIN_LOSS_TOL and grad_excess <= TRAIN_ATOL and weight_excess <= TRAIN_ATOL
+              and g_launched == 0 and all(math.isfinite(x) for x in gl))
+        log("train", reference=f"base widths {TRAIN_REF_LAYERS}+{TRAIN_REF_LAYERS} layers f32 B{TRAIN_REF_BATCH}, "
+            f"{TRAIN_REF_STEPS} AdamW steps", align=align_on, card_losses=[round(x, 6) for x in gl],
+            cpu_losses=[round(x, 6) for x in cl], loss_err=loss_err, grad_max_abs_err=grad_abs,
+            grad_excess=grad_excess, weight_excess=weight_excess, tol=f"{TRAIN_ATOL}+{TRAIN_RTOL}*|cpu|",
+            kernel_launches=g_launched, ok=ok)
+        if not ok:
+            raise AssertionError(f"the card's train step disagrees with the CPU (align={align_on})")
+
+
+class TrainWatch:
+    """Wraps the train step the trainer calls (``parallel.train.train_step``,
+    looked up on the module): per step, the ms to a synchronize, the kernel
+    launches made inside it, the peak card memory, and which encoder q/k/v
+    weights got an all-zero gradient. Restores the step on exit."""
+
+    def __init__(self):
+        from whisperlivekit_tpu_torch.parallel import train as T
+
+        self.T, self.ms, self.launched, self.peak, self.zero_grads = T, [], 0, 0, set()
+
+    def __enter__(self):
+        real = self.real = self.T.train_step
+
+        def step(state, *a, **k):
+            before = _kernel_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real(state, *a, **k)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t) * 1e3)
+            after = _kernel_counts()
+            self.launched += sum(after[n] - before[n] for n in ("flash_encoder_attn", "xkv_splice", "log_mel_pallas"))
+            projs = [(f"encoder.blocks.{i}.attn.{n}", getattr(b.attn, n))
+                     for i, b in enumerate(out[0].params.encoder.blocks) for n in "qkv"]
+            amax = torch.stack([p.weight.grad.abs().amax() for _, p in projs]).cpu()
+            self.zero_grads |= {name for (name, _), m in zip(projs, amax.tolist()) if m == 0}
+            self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+            return out
+
+        self.T.train_step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.T.train_step = self.real
+
+
+async def _serve_trained(native_dir: str, words: list, prof_dir: str) -> dict:
+    """TranscriptionEngine(model_path=..., profile_dir=...) on the trained
+    checkpoint: two AudioProcessor sessions fed the trainer's event audio
+    in real time; each lane tick's kept tokens and stop reason recorded,
+    the first ticks traced into ``prof_dir``."""
+    from whisperlivekit_tpu_torch.engine.core import TranscriptionEngine, WLKConfig
+    from whisperlivekit_tpu_torch.harness import train_structured as TS
+    from whisperlivekit_tpu_torch.session.processor import AudioProcessor
+    from whisperlivekit_tpu_torch.streaming.session_plan import AlignAttSession
+
+    config = WLKConfig(model_path=native_dir, lan="en", pcm_input=True, vac=False,
+                       param_dtype="bfloat16", log_level="WARNING", profile_dir=prof_dir)
+    engine = TranscriptionEngine(config)
+    if engine.device.type != "cuda":
+        raise AssertionError(f"engine landed on {engine.device}, not the card")
+    ticks = []
+    real_finish = AlignAttSession.finish_tick
+
+    def finish_tick(sess, ti, out):
+        ticks.append((int(out.n_keep), int(out.reason)))
+        return real_finish(sess, ti, out)
+
+    AlignAttSession.finish_tick = finish_tick
+    try:
+        engine.scheduler.reset_stats()
+        seeds = [300 + s for s in range(TRAIN_SESSIONS)]
+        pcms = [(np.clip(TS.events_audio(TRAIN_SECONDS, seed=s, t0=0.0, n_words=len(words)), -1, 1)
+                 * 32767).astype("<i2") for s in seeds]
+        t1 = time.perf_counter()
+        procs = [AudioProcessor(transcription_engine=engine) for _ in seeds]
+        texts = await asyncio.gather(*(_feed_processor(p, pcm) for p, pcm in zip(procs, pcms)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        stats = engine.scheduler.stats()
+    finally:
+        AlignAttSession.finish_tick = real_finish
+        TranscriptionEngine.reset()
+    return dict(texts=texts, seeds=seeds, wall=wall, stats=stats, ticks=ticks)
+
+
+def phase_train() -> dict:
+    """The trainer on the card: the f32 reference, then the full-width base
+    trainer through its entry point, its checkpoint round trip, and the
+    trained checkpoint served. Kernel counts run from before the trainer to
+    after the sessions; the train steps must launch none."""
+    import gc
+    import tempfile
+    from pathlib import Path
+
+    from whisperlivekit_tpu_torch.harness import train_structured as TS
+    from whisperlivekit_tpu_torch.harness.vocab import install_standin_vocab
+    from whisperlivekit_tpu_torch.harness.wer import compute_wer
+    from whisperlivekit_tpu_torch.models.whisper.dims import MODEL_DIMS
+    from whisperlivekit_tpu_torch.models.whisper.load import load_native
+    from whisperlivekit_tpu_torch.models.whisper.tokenizer import get_tokenizer
+    from whisperlivekit_tpu_torch.streaming.alignatt import STOP_EOT
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="wlk_train_") as tmp:
+        install_standin_vocab(f"{tmp}/vocab")
+        tok = get_tokenizer(True, language="en", task="transcribe")
+        words, word_ids = TS.word_vocab(tok)
+        phase_reference_train(tok, word_ids)
+
+        argv = ["--model", "base", "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+                "--dataset-batches", str(TRAIN_DATASET_BATCHES), "--tok-len", str(TRAIN_TOK_LEN),
+                "--lr", str(TRAIN_LR), "--cache-dir", f"{tmp}/ds", "--out", f"{tmp}/w.npz",
+                "--out-native", f"{tmp}/native", "--report", f"{tmp}/report.json"]
+        _reset_kernel_counts()  # the train path counts from here: trainer, eval, serving
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with TrainWatch() as watch:
+            report = TS.main(argv)
+        trainer_s = time.perf_counter() - t0
+        eval_counts = _kernel_counts()
+        losses = report["losses"]
+        steady = sorted(watch.ms[1:]) or watch.ms
+        log("train", trainer="base 6+6 layers f32, scaffolded, align-supervised", argv=" ".join(argv[:10]),
+            words=report["words"], steps=len(losses), loss_first=round(losses[0], 4),
+            loss_last=round(losses[-1], 4), loss_mean_last10=round(float(np.mean(losses[-10:])), 4),
+            ms_per_step_p50=round(steady[len(steady) // 2], 2), ms_first_step=round(watch.ms[0], 2),
+            peak_GB=round(watch.peak / 2**30, 3), greedy_token_accuracy=report["greedy_token_accuracy"],
+            align_sharpness=report["align_sharpness_mean_maxp"], trainer_wall_s=round(trainer_s, 2),
+            train_step_launches=watch.launched, eval_k1_launches=eval_counts["flash_encoder_attn"],
+            zero_qkv_grads=sorted(watch.zero_grads))
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train: a loss is not finite: {losses}")
+        if not np.mean(losses[-10:]) < losses[0]:
+            raise AssertionError(f"train: the loss did not fall: first {losses[0]}, last 10 {losses[-10:]}")
+        if watch.launched:
+            raise AssertionError(f"train: {watch.launched} kernel launches inside the train steps")
+        if watch.zero_grads:
+            raise AssertionError(f"train: all-zero encoder gradients: {sorted(watch.zero_grads)}")
+
+        loaded, dims_name = TS.load_params(f"{tmp}/w.npz")
+        native, ndims = load_native(f"{tmp}/native", device=CARD)
+        same = [n for (n, a), (_, b) in zip(loaded.named_parameters(), native.named_parameters())
+                if a.dtype == torch.bfloat16 and torch.equal(a, b)]
+        n_params = len(list(native.parameters()))
+        log("train", checkpoint="npz + native", dims=dims_name, native_dims_base=ndims == MODEL_DIMS["base"],
+            npz_MB=round(Path(f"{tmp}/w.npz").stat().st_size / 2**20, 1),
+            tensors_bit_equal=f"{len(same)}/{n_params}")
+        if dims_name != "base" or ndims != MODEL_DIMS["base"] or len(same) != n_params:
+            raise AssertionError("train: the npz does not read back bit for bit as the saved weights")
+        del loaded, native
+        gc.collect()
+
+        run = asyncio.run(_serve_trained(f"{tmp}/native", report["words"], f"{tmp}/prof"))
+        traces = list(Path(f"{tmp}/prof").glob("*.pt.trace.json"))
+        cats = Counter(e.get("cat") for t in traces for e in json.loads(t.read_text())["traceEvents"])
+    counts = _kernel_counts()
+    log("train", profile_dir_traces=len(traces), trace_events={k: cats[k] for k in ("cpu_op", "kernel")})
+    if len(traces) != 1 or not cats["kernel"] or not cats["cpu_op"]:
+        raise AssertionError(f"train: profile_dir left {len(traces)} traces with {dict(cats)}")
+    stats = run["stats"]
+    kept = [n for n, _ in run["ticks"]]
+    reasons = Counter(r for _, r in run["ticks"])
+    for (lines, seed) in zip(run["texts"], run["seeds"]):
+        hyp = " ".join(t for t, _ in lines)
+        ref = " ".join(TS.events_words(seed, 0.0, TRAIN_SECONDS, report["words"]))
+        log("train", session=seed, words=len(hyp.split()), ref_words=len(ref.split()),
+            wer=round(compute_wer(ref, hyp)["wer"], 4), text=repr(hyp[:120]), ref=repr(ref[:120]))
+    names = ("running", "eot", "gate", "rewind", "nospeech", "cap", "ctx")
+    log("train", serve="trained base checkpoint, bf16", sessions=len(run["texts"]), audio_s_each=TRAIN_SECONDS,
+        wall_s=round(run["wall"], 3), ticks=stats["n_ticks"], lane_ticks=len(kept),
+        kept_tokens_per_lane_tick=round(float(np.mean(kept)), 2) if kept else None,
+        stop_reasons={names[r]: n for r, n in sorted(reasons.items())}, eot_share=round(reasons[STOP_EOT] / max(len(kept), 1), 3),
+        tick_ms_p50=stats["tick_ms_p50"], word_emission_p50_ms=stats["word_emission_p50_ms"],
+        failed_ticks=stats["n_failed_ticks"])
+    log("train", kernel="flash_encoder_attn", launches=counts["flash_encoder_attn"],
+        launches_by_SxT={f"{s}x{t}": n for (s, t), n in sorted(counts["k1_shapes"].items())})
+    _check_k1_bodies("train", counts)
+    if stats["n_failed_ticks"]:
+        raise AssertionError(f"train: {stats['n_failed_ticks']} ticks failed serving the trained checkpoint")
+    if counts["flash_encoder_attn"] <= eval_counts["flash_encoder_attn"]:
+        raise AssertionError("train: K1 never launched serving the trained checkpoint")
+    return dict(report=report, counts=counts, stats=stats)
+
+
+def phase_kernels_train(launched: dict) -> dict:
+    """K1 in bf16 at every (S, T) the train phase launched it: the eval's
+    full-window encode at 8 lanes, and the served checkpoint's encoder
+    window, tail and prefill buckets at its sessions' lanes. Fails on a
+    launched (S, T) it did not check."""
+    records = {}
+    for S, T in sorted(launched):
+        if (S, T) == (1500, 1500):
+            label, b, vt = "train eval encoder full window", TRAIN_BATCH, False
+        elif S == T:
+            label, b, vt = "train serving encoder tail", TRAIN_SESSIONS, False
+        elif T == 1500 and S in PREFIX_BUCKETS:
+            label, b, vt = f"train serving prefill, bucket {S}", TRAIN_SESSIONS, True
+        else:
+            raise AssertionError(f"the train run launched K1 at an unchecked shape {(S, T)}")
+        records[(S, T)] = _check_k1(label, "base", S, T, T, vt, torch.bfloat16, b, H)
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--k3-ab", metavar="LOG_MEL_CU", default=None,
@@ -3608,6 +3908,8 @@ def main(argv=None) -> int:
     timed("causal", phase_causal)
     vox = timed("voxtral", phase_voxtral)
     vox_records = timed("kernels_voxtral", phase_kernels_voxtral, vox["counts"]["k1_shapes"])
+    train = timed("train", phase_train)
+    train_records = timed("kernels_train", phase_kernels_train, train["counts"]["k1_shapes"])
     large_records = timed("kernels_large", phase_kernels_large,
                           {"large-v3": large["geom"], "large-v3 f8": f8["geom"], LOAD_MODEL: load["geom"]},
                           Counter(large["counts"]["k1_shapes"]) + Counter(f8["counts"]["k1_shapes"])
@@ -3635,6 +3937,7 @@ def main(argv=None) -> int:
     k1_errs += [r["max_abs_err"] for r in la_records.values()]
     k1_errs += [r["max_abs_err"] for r in dt_records.values()]
     k1_errs += [r["max_abs_err"] for r in vox_records.values()]
+    k1_errs += [r["max_abs_err"] for r in train_records.values()]
     k1 = large_records[("flash_encoder_attn", 1500, 1500, "bfloat16")]
     G = large["geom"]["group_width"]
     L = large["geom"]["n_text_layer"]
@@ -3650,7 +3953,8 @@ def main(argv=None) -> int:
                                        "load": load["counts"]["flash_encoder_attn"],
                                        "la": la["counts"]["flash_encoder_attn"],
                                        "diar_tr": dt["counts"]["flash_encoder_attn"],
-                                       "voxtral": vox["counts"]["flash_encoder_attn"]},
+                                       "voxtral": vox["counts"]["flash_encoder_attn"],
+                                       "train": train["counts"]["flash_encoder_attn"]},
                 "xkv_splice": {"large": large["counts"]["xkv_splice"], "f8": f8["counts"]["xkv_splice"],
                                "load": load["counts"]["xkv_splice"]},
                 "log_mel_pallas": {"front": front["counts"]["log_mel_pallas"],

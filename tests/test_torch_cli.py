@@ -6,7 +6,8 @@ from the shell every command runs on the card.
   ``wlk transcribe`` prints for the same dev-tiny checkpoint and WAV;
 - ``run``, ``diagnose``, ``models``, ``convert``, ``serve``/``listen`` (the
   server's run stubbed), ``pull`` and ``rm`` (over a fake cache, stopping
-  before any fetch), ``check`` with and without CUDA, ``bench`` (not ported);
+  before any fetch), ``check`` with and without CUDA, ``bench`` (its usage error; the runs
+  are in test_torch_bench.py);
 - ``test_client.transcribe_audio`` against the port's server.
 """
 
@@ -81,8 +82,8 @@ def test_usage_and_help(assets, capsys):
     assert TC.main(["--help"]) == 0
     out = capsys.readouterr().out
     assert "usage: wlk-torch [serve|listen|run|transcribe|bench" in out and "--model-path" in out
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        TC.main(["bench"], device="cpu")
+    assert TC.main(["bench"], device="cpu") == 2
+    assert "usage: wlk-torch bench --audio FILE" in capsys.readouterr().err
 
 
 def test_public_names_match_jax():

@@ -4,8 +4,7 @@
 
 (``wlk-torch`` when installed.) The same subcommands and flags as the JAX
 package's ``wlk`` (reference cli.py:52-1718); the offline commands
-(transcribe/run/diagnose) drive the port's in-process TestHarness. ``bench``
-is not ported yet and raises.
+(transcribe/run/diagnose/bench) drive the port's in-process TestHarness.
 
 Device: from the shell every command that builds a model runs it on the card
 and fails without CUDA. A Python caller picks the device with
@@ -322,10 +321,9 @@ def cmd_convert(argv, device=None) -> int:
 
 
 def cmd_bench(argv, device=None) -> int:
-    raise NotImplementedError(
-        "bench (whisperlivekit_tpu/bench/) is not ported yet: ROADMAP queue 1 item 4, "
-        "with item 1's bench twin, waits for a benchmark PR"
-    )
+    from .bench.runner import main as bench_main
+
+    return bench_main(argv, device)
 
 
 def cmd_diagnose(argv, device=None) -> int:

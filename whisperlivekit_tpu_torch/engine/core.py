@@ -311,6 +311,7 @@ class TranscriptionEngine:
                         self.asr.engine,
                         max_lanes=config.max_batch_sessions,
                         incremental_encode=getattr(config, "incremental_encode", True),
+                        profile_dir=config.profile_dir,
                     )
             logger.info(
                 "Loaded whisper %s (%d-layer enc / %d-layer dec, %s) on %s policy=%s",

@@ -16,13 +16,17 @@ signatures and layouts, so the parity tests compare like with like:
 Dense weights are stored [out, in] (``F.linear``'s layout);
 ``params_from_jax_numpy`` converts the JAX pytree (stacked [L, ...] leaves,
 [in, out] dense weights; ``quantize_decoder_f8``'s float8 ``{w, w_scale}``
-too) into a ``Whisper`` module. The flash kernel
-(ops/flash_encoder.py) runs when the tensors are on CUDA, where the JAX
-module checks for the TPU backend.
+too) into a ``Whisper`` module and ``params_to_jax_numpy`` goes back. The
+flash kernel (ops/flash_encoder.py) runs when the tensors are on CUDA, where
+the JAX module checks for the TPU backend; ``encode(..., flash=False)`` keeps
+the differentiable path, as training needs (the kernel has no backward).
+A ``Dense`` whose ``tp`` is set is one rank's tensor-parallel shard
+(parallel/mesh.py): ``dense`` runs its collectives around the product.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -58,6 +62,7 @@ class Dense(nn.Module):
         self.weight = nn.Parameter(torch.empty(d_out, d_in))
         self.bias = nn.Parameter(torch.zeros(d_out)) if bias else None
         self.register_buffer("w_scale", None)
+        self.tp = None  # parallel.mesh.TPRole of a tensor-parallel shard
 
     def _apply(self, fn, recurse=True):
         if self.w_scale is None:
@@ -229,6 +234,64 @@ def params_from_jax_numpy(tree, dims: ModelDimensions, dtype=None, device="cpu")
     return model.requires_grad_(False)
 
 
+def params_to_jax_numpy(model: Whisper, dims: ModelDimensions, grad: bool = False) -> dict:
+    """The inverse of ``params_from_jax_numpy``: the JAX parameter pytree as
+    float32 numpy arrays, block leaves stacked [L, ...] and dense weights
+    transposed to [in, out]. With ``grad`` each leaf is the parameter's
+    ``.grad`` (zeros where it has none), so gradients and updated weights
+    compare with JAX's leaf by leaf. Exact: bfloat16 widens to float32
+    without rounding. f8 weights are refused."""
+
+    def get(param: torch.Tensor) -> np.ndarray:
+        t = param.grad if grad else param
+        if t is None:
+            t = torch.zeros_like(param)
+        if t.dtype == F8:
+            raise ValueError("params_to_jax_numpy takes no f8 weights (quantize_decoder_f8)")
+        return t.detach().to("cpu", torch.float32).numpy()
+
+    def stack(blocks, fn) -> np.ndarray:
+        return np.stack([fn(b) for b in blocks])
+
+    def dense_p(blocks, path) -> dict:
+        mod = lambda b: functools.reduce(getattr, path, b)  # noqa: E731
+        out = {"w": stack(blocks, lambda b: get(mod(b).weight).T)}
+        if mod(blocks[0]).bias is not None:
+            out["b"] = stack(blocks, lambda b: get(mod(b).bias))
+        return out
+
+    def ln_p(blocks, name) -> dict:
+        return {k: stack(blocks, lambda b: get(getattr(getattr(b, name), k))) for k in ("scale", "bias")}
+
+    def blocks_p(blocks, cross: bool) -> dict:
+        out = {
+            "attn_ln": ln_p(blocks, "attn_ln"),
+            "attn": {n: dense_p(blocks, ("attn", n)) for n in ("q", "k", "v", "o")},
+            "mlp_ln": ln_p(blocks, "mlp_ln"),
+            "mlp": {n: dense_p(blocks, (n,)) for n in ("fc1", "fc2")},
+        }
+        if cross:
+            out["cross_ln"] = ln_p(blocks, "cross_ln")
+            out["cross"] = {n: dense_p(blocks, ("cross", n)) for n in ("q", "k", "v", "o")}
+        return out
+
+    enc, dec = model.encoder, model.decoder
+    return {
+        "encoder": {
+            **{c: {"w": get(getattr(enc, c).weight), "b": get(getattr(enc, c).bias)}
+               for c in ("conv1", "conv2")},
+            "blocks": blocks_p(list(enc.blocks), cross=False),
+            "ln_post": {"scale": get(enc.ln_post.scale), "bias": get(enc.ln_post.bias)},
+        },
+        "decoder": {
+            "tok_emb": get(dec.tok_emb),
+            "pos_emb": get(dec.pos_emb),
+            "blocks": blocks_p(list(dec.blocks), cross=True),
+            "ln": {"scale": get(dec.ln.scale), "bias": get(dec.ln.bias)},
+        },
+    }
+
+
 def _f8_linears(model: Whisper):
     """The decoder-block linears that ``quantize_decoder_f8`` converts."""
     for blk in model.decoder.blocks:
@@ -283,11 +346,16 @@ def _linear_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def dense(x: torch.Tensor, p: Dense) -> torch.Tensor:
     """x @ w (+ b) in f32, rounded once to x's dtype, as JAX's ``dense``. An
     f8 weight is widened to x's dtype for the product, and its channel
-    scale multiplies the f32 result before the bias."""
+    scale multiplies the f32 result before the bias. A tensor-parallel
+    shard's role (``p.tp``) wraps the product in its collectives."""
+    if p.tp is not None:
+        x = p.tp.enter(x)
     if p.weight.dtype == F8:
         y = _linear_f32(x, p.weight.to(x.dtype)) * p.w_scale
     else:
         y = _linear_f32(x, p.weight)
+    if p.tp is not None:
+        y = p.tp.leave(y)
     if p.bias is not None:
         y = y + p.bias.float()
     return y.to(x.dtype)
@@ -364,12 +432,18 @@ def encode(
     mel: torch.Tensor,
     dims: ModelDimensions,
     pos_start: Optional[torch.Tensor] = None,
+    flash: Optional[bool] = None,
 ) -> torch.Tensor:
     """mel [B, n_mels, 2*F] -> encoder features [B, F, D].
 
     ``pos_start`` ([B] int) offsets the sinusoidal position table per lane:
     an incremental tick encodes only a window tail whose frames carry their
     absolute positions within the 30 s window.
+
+    ``flash`` forces the attention path, as in JAX: None takes the kernel
+    where it runs (CUDA, Dh 64 or 128), False the differentiable plain
+    attention (the training step: the kernel has no backward), True the
+    kernel, which raises without CUDA rather than run the plain version.
     """
     p = model.encoder
     x = mel.to(p.conv1.weight.dtype)
@@ -388,7 +462,9 @@ def encode(
 
     n_head = dims.n_audio_head
     T0 = x.shape[1]
-    use_flash = _flash_attn_available(x, dims.n_audio_state // n_head)
+    use_flash = _flash_attn_available(x, dims.n_audio_state // n_head) if flash is None else flash
+    if flash and not x.is_cuda:
+        raise ValueError("encode(flash=True) needs CUDA tensors: the flash kernel has no CPU form")
 
     for bp in p.blocks:
         h = layer_norm(x, bp.attn_ln)

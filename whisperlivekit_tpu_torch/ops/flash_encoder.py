@@ -24,8 +24,9 @@ a transposing copy. Unlike the TPU kernel, S and T need no padding: ragged
 edges are masked in-kernel.
 
 ``flash_encoder_attn`` launches a kernel for CUDA tensors and raises on
-anything it does not take; for CPU tensors it runs
-``flash_encoder_attn_plain``, the plain PyTorch version of the same math.
+anything it does not take, inputs that require grad included; for CPU
+tensors it runs ``flash_encoder_attn_plain``, the plain PyTorch version of
+the same math.
 """
 
 from __future__ import annotations
@@ -216,9 +217,17 @@ def flash_encoder_attn(
     CUDA tensors launch a hand-written kernel (or raise); CPU tensors take
     the plain version. ``flash_encoder_attn.launches`` counts kernel
     launches, ``.shapes`` counts them per (S, T), ``.bodies`` per body
-    (``k1_plan``) and ``.splits`` per key-split count of the bf16 body."""
+    (``k1_plan``) and ``.splits`` per key-split count of the bf16 body.
+
+    The kernel has no backward: with grad mode on and an input that
+    requires grad it raises rather than return a tensor autograd cannot
+    reach (train through ``encode(..., flash=False)``)."""
     if not q.is_cuda:
         return flash_encoder_attn_plain(q, k, v, t_valid, v_transposed)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "flash_encoder_attn has no backward: an input requires grad; "
+            "run the differentiable attention (encode(..., flash=False)) to train")
     _check_cuda_args(q, k, v, t_valid, v_transposed)
     B, H, S, Dh = q.shape
     T = k.shape[-1]
