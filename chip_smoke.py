@@ -130,7 +130,30 @@ Phases (each prints lines; any failure raises and exits non-zero):
              the word emission beside the main phase's. Then K1 in bf16
              against its plain version at every (S, T) that run launched
              (the encoder's full window and tail, the prefill buckets).
-11. causal  — Qwen3-ASR causal: at the 0.6B model's full widths with 4+4
+11. vad     — the batched Silero VAD (vad_backend="jax-batched"): a
+             stand-in in Silero v6's layout written under build/ from fixed
+             seeds (harness/vad_checkpoint.py, its head calibrated on audio
+             of other seeds), its tower over 64 lanes x 90 frames on the
+             card against the CPU (probabilities, h and c within 2e-4, the
+             context exact) under the smoke's TF32 flags and under torch's
+             defaults (and printed with both on), and 8 lanes stepped
+             together against one-lane runs (1e-5); then ``random:base``
+             bf16 with ``vac=True``: AudioProcessor sessions and one ``WS
+             /asr`` stream fed in real time together. Checks words on every
+             session, that every gate opened in the first voiced span,
+             closed inside the pause and opened after it, that the
+             scheduler stepped more than one lane at once, that no tick
+             failed and that K1 launched; prints the VAD's sub-steps, lanes
+             a sub-step, ms a sub-step on the event loop's thread (the read
+             included), each chunk's await of the VAD, then direct
+             sub-steps' ms at 1-256 lanes and kernels a sub-step
+             (torch.profiler), the pool's bytes, and the word emission
+             beside the main phase's. The same sessions then run on the
+             host path (vad_backend="auto": torch.jit on the CPU in a
+             worker thread) beside it, checked the same way. Then K1 in
+             bf16 against its plain version at every (S, T) the batched run
+             launched.
+12. causal  — Qwen3-ASR causal: at the 0.6B model's full widths with 4+4
              layers in f32, two blocks appended and a hypothesis decoded on
              the card against the CPU (tokens and each block's top-8 ids
              equal, logits within 1e-4, and the same card run with TF32 on
@@ -148,7 +171,7 @@ Phases (each prints lines; any failure raises and exits non-zero):
              traced decode alone, the pools' bytes per lane, peak card
              memory over the weights, and the word emission (a tick's call
              to its result, p50 / p95).
-12. voxtral — Voxtral: at Voxtral-Mini-3B's widths with 2+2 layers in f32
+13. voxtral — Voxtral: at Voxtral-Mini-3B's widths with 2+2 layers in f32
              on the card against the CPU (greedy tokens and the top-8 ids
              equal, logits within 1e-4, and the same card run with TF32 on
              outside 1e-4); then one checkpoint at those widths with 4+4
@@ -163,7 +186,7 @@ Phases (each prints lines; any failure raises and exits non-zero):
              prints a transcribe's ms and launches a step alone and the
              backend lock's A/B. Then K1 in bf16 against its plain version
              at every (S, T) that run launched.
-13. train   — the structured-weights trainer (harness/train_structured.py,
+14. train   — the structured-weights trainer (harness/train_structured.py,
              parallel/train.py): the train step at base widths with 2+2
              layers, f32, batch 2, on the card against the CPU (every
              step's loss, every gradient of the first, the weights after
@@ -188,7 +211,7 @@ Phases (each prints lines; any failure raises and exits non-zero):
              tokens per lane tick and the ticks' stop reasons (end of text
              among them). Then K1 in bf16 against its plain version at every
              (S, T) that run launched.
-14. kernels — the large form's kernels at the shapes its engines give them:
+15. kernels — the large form's kernels at the shapes its engines give them:
              K1 at the encoder's two shapes, every prefix bucket over the
              dense cross-KV and over the pool, and both refresh widths, and
              at every (S, T) the large, f8 and load runs launched; K2
@@ -2982,22 +3005,359 @@ def phase_diar_tr(main_run: dict) -> dict:
     return run
 
 
-def phase_kernels_diar_tr(launched: dict) -> dict:
-    """K1 in bf16 at every (S, T) the diar_tr phase launched it, at the base
-    form's batch: the encoder's full window and tail, and each prefill
-    bucket over the pool. Fails on a launched (S, T) it did not check."""
+def phase_kernels_base(phase: str, launched: dict) -> dict:
+    """K1 in bf16 at every (S, T) a base-form phase (diar_tr, vad) launched
+    it, at the base form's batch: the encoder's full window and tail, and
+    each prefill bucket over the pool. Fails on a launched (S, T) it did not
+    check."""
     records = {}
     for S, T in sorted(launched):
         if (S, T) == (1500, 1500):
-            label, vt = "diar_tr encoder full window", False
+            label, vt = f"{phase} encoder full window", False
         elif (S, T) == (384, 384):
-            label, vt = "diar_tr encoder tail", False
+            label, vt = f"{phase} encoder tail", False
         elif T == 1500 and S in PREFIX_BUCKETS:
-            label, vt = f"diar_tr prefill cross-attention, bucket {S}", True
+            label, vt = f"{phase} prefill cross-attention, bucket {S}", True
         else:
-            raise AssertionError(f"the diar_tr run launched K1 at an unchecked shape {(S, T)}")
+            raise AssertionError(f"the {phase} run launched K1 at an unchecked shape {(S, T)}")
         records[(S, T)] = _check_k1(label, "base", S, T, T, vt, torch.bfloat16, B, H)
     return records
+
+
+# ---------------------------------------------------------------------------
+# vad: the batched Silero VAD (vad_backend="jax-batched") on the card
+# ---------------------------------------------------------------------------
+
+VAD_SEED = 21            # the stand-in's weights; its head is calibrated on calibration_audio(VAD_SEED + 1)
+VAD_REF_LANES = 64       # card against CPU: lanes x frames of speech_with_pause, state carried
+VAD_REF_FRAMES = 90
+VAD_REF_TOL = 2e-4       # the JAX suite's Silero bar (tests/test_vad_jax.py:50)
+VAD_ISO_LANES = 8        # lanes stepped together against one-lane runs, on the card
+VAD_ISO_TOL = 1e-5       # tests/test_vad_jax.py:65
+VAD_SESSIONS = 16        # AudioProcessor sessions in process, plus one over WS /asr
+VAD_SECONDS = 12.0
+VAD_PROFILE_STEPS = 8    # direct sub-steps traced for the kernels a step
+VAD_SOLO_LANES = (1, 17, 64, 256)  # lanes of the direct sub-steps timed after the run
+VAD_STANDIN_DIR = "build/vad_standin"  # (ignored by git) the stand-in and the stand-in vocabulary
+
+
+def _vad_audio(lanes: int, frames: int, seed: int) -> np.ndarray:
+    """[lanes, frames * 512] f32: speech_with_pause, one seed a lane."""
+    n = frames * 512
+    return np.stack([speech_with_pause(n / 16000 + 0.1, seed + i)[:n] for i in range(lanes)]).astype(np.float32) / 32768.0
+
+
+def _vad_run(params, audio: np.ndarray) -> tuple:
+    """vad_step over every frame of ``audio`` on the params' device, state
+    carried: (probs [F, B], h [F, B, 128], c, context [F, B, 64]) on the CPU."""
+    from whisperlivekit_tpu_torch.audio import vad_model as VM
+
+    dev = params.stft_basis.device
+    x = torch.from_numpy(audio).to(dev)
+    st = VM.init_state(audio.shape[0], dev)
+    out = []
+    for i in range(audio.shape[1] // 512):
+        p, st = VM.vad_step(params, st, x[:, i * 512 : (i + 1) * 512])
+        out.append((p, st.h, st.c, st.context))
+    return tuple(torch.stack(t).cpu() for t in zip(*out))
+
+
+def phase_reference_vad(path: str) -> None:
+    """The stand-in's tower on the card against the CPU: VAD_REF_LANES lanes
+    x VAD_REF_FRAMES frames, state carried. Probabilities, h and c within
+    VAD_REF_TOL and the context exact under the smoke's TF32 flags (off)
+    and under torch's defaults (cuDNN on, cuBLAS off); printed with both on
+    too (not held: matrix products in TF32). Then VAD_ISO_LANES lanes
+    stepped together against each stepped alone on the card."""
+    from whisperlivekit_tpu_torch.audio import vad_model as VM
+
+    cpu, card = VM.load_params(path, device="cpu"), VM.load_params(path, device="cuda")
+    audio = _vad_audio(VAD_REF_LANES, VAD_REF_FRAMES, seed=300)
+    want = _vad_run(cpu, audio)
+    errs = {}
+    for name, flags in (("off", (False, False)), ("defaults", (False, True)), ("both_on", (True, True))):
+        with _tf32_flags(*flags):
+            got = _vad_run(card, audio)
+        errs[name] = dict(prob=(got[0] - want[0]).abs().max().item(), h=(got[1] - want[1]).abs().max().item(),
+                          c=(got[2] - want[2]).abs().max().item(), context_equal=torch.equal(got[3], want[3]))
+    probs = want[0]
+    log("vad_ref", lanes=VAD_REF_LANES, frames=VAD_REF_FRAMES, tol=VAD_REF_TOL,
+        share_over_0_5=round((probs > 0.5).float().mean().item(), 3),
+        share_under_0_35=round((probs < 0.35).float().mean().item(), 3),
+        **{f"max_err_tf32_{k}": v for k, v in errs.items()})
+    for name in ("off", "defaults"):
+        e = errs[name]
+        if not (max(e["prob"], e["h"], e["c"]) <= VAD_REF_TOL and e["context_equal"]):
+            raise AssertionError(f"the VAD step on the card disagrees with the CPU (TF32 {name}): {e}")
+    together = _vad_run(card, audio[:VAD_ISO_LANES])
+    alone = [_vad_run(card, audio[i : i + 1]) for i in range(VAD_ISO_LANES)]
+    iso = max((together[k][:, i] - alone[i][k][:, 0]).abs().max().item()
+              for i in range(VAD_ISO_LANES) for k in range(3))
+    log("vad_ref", lane_isolation_lanes=VAD_ISO_LANES, lane_isolation_max_err=iso, tol=VAD_ISO_TOL)
+    if not iso <= VAD_ISO_TOL:
+        raise AssertionError(f"VAD lanes stepped together differ from one-lane runs: {iso}")
+
+
+class VADInstrumented:
+    """Wraps, for a vad run: every AudioProcessor built (in process and
+    behind WS /asr), each gate transition that changed the gate (its
+    session, close or open, stream seconds), and each chunk's VAD call:
+    the batched path's await on the event loop's thread
+    (AsyncFixedVADIterator.__call__) and the host path's call in its worker
+    thread (FixedVADIterator.__call__), in ms. Restores everything on exit."""
+
+    def __init__(self):
+        from whisperlivekit_tpu_torch.audio import vad as V
+        from whisperlivekit_tpu_torch.audio import vad_batched as VB
+        from whisperlivekit_tpu_torch.session import processor as P
+
+        self.V, self.VB, self.P = V, VB, P
+        self.procs, self.gate, self.vad_ms = [], [], []
+
+    def __enter__(self):
+        V, VB, P = self.V, self.VB, self.P
+        self.real = real = dict(init=P.AudioProcessor.__init__, close=P.SilenceGate.close,
+                                open=P.SilenceGate.open, acall=VB.AsyncFixedVADIterator.__call__,
+                                call=V.FixedVADIterator.__call__)
+
+        def init(proc, *a, **k):
+            real["init"](proc, *a, **k)
+            self.procs.append(proc)
+
+        async def close(gate, at_seconds):
+            was = gate.closed
+            out = await real["close"](gate, at_seconds)
+            if not was:
+                self.gate.append((id(gate), "close", at_seconds))
+            return out
+
+        async def open_(gate, at_seconds):
+            was = gate.closed
+            out = await real["open"](gate, at_seconds)
+            if was:
+                self.gate.append((id(gate), "open", at_seconds))
+            return out
+
+        async def acall(it, x, return_seconds=False):
+            t = time.perf_counter()
+            out = await real["acall"](it, x, return_seconds)
+            self.vad_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        def call(it, x, return_seconds=False):
+            t = time.perf_counter()
+            out = real["call"](it, x, return_seconds)
+            self.vad_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        P.AudioProcessor.__init__, P.SilenceGate.close, P.SilenceGate.open = init, close, open_
+        VB.AsyncFixedVADIterator.__call__, V.FixedVADIterator.__call__ = acall, call
+        return self
+
+    def __exit__(self, *exc):
+        V, VB, P, real = self.V, self.VB, self.P, self.real
+        P.AudioProcessor.__init__, P.SilenceGate.close, P.SilenceGate.open = real["init"], real["close"], real["open"]
+        VB.AsyncFixedVADIterator.__call__, V.FixedVADIterator.__call__ = real["acall"], real["call"]
+
+
+class _Result:
+    """A future's stand-in for sub-steps driven directly (``_step``)."""
+
+    def done(self) -> bool:
+        return False
+
+    def set_result(self, value) -> None:
+        self.value = value
+
+
+def _vad_solo(sched, max_lanes: int) -> dict:
+    """Direct sub-steps on the run's scheduler after its sessions: the ms of
+    one (host clock, the read of the probabilities included; 3 warm-up, 20
+    timed) at each of VAD_SOLO_LANES lanes, and VAD_PROFILE_STEPS of them at
+    the run's busiest lane count traced by torch.profiler (device activity
+    only) for the kernels and copies a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    frames = _vad_audio(1, 1, seed=499)[0]
+
+    def step(n):
+        sched._step([(lane, frames, _Result()) for lane in range(n)])
+
+    ms = {}
+    for n in VAD_SOLO_LANES:
+        if n > sched.capacity:
+            continue
+        for _ in range(3):
+            step(n)
+        t = time.perf_counter()
+        for _ in range(20):
+            step(n)
+        ms[n] = round((time.perf_counter() - t) * 1e3 / 20, 4)
+    step(max_lanes)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(VAD_PROFILE_STEPS):
+            step(max_lanes)
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    kernels = sum(e.count for e in ev if e.device_type == DeviceType.CUDA and "Memcpy" not in e.key
+                  and "Memset" not in e.key)
+    copies = sum(e.count for e in ev if e.device_type == DeviceType.CUDA and "Memcpy" in e.key)
+    busy_us = sum(e.self_device_time_total for e in ev if e.device_type == DeviceType.CUDA)
+    return dict(step_ms_by_lanes=ms, kernels_per_step=kernels / VAD_PROFILE_STEPS,
+                copies_per_step=copies / VAD_PROFILE_STEPS, device_us_per_step=busy_us / VAD_PROFILE_STEPS)
+
+
+async def _main_path_vad(backend: str) -> dict:
+    """``random:base`` bf16 with ``vac=True`` and ``vad_backend=backend``
+    ("jax-batched": the batched Silero VAD on the card; "auto": the host
+    path, torch.jit on the CPU in a worker thread), the stand-in in
+    WLK_TPU_ASSET_DIR: AudioProcessor sessions and one ``WS /asr`` stream,
+    fed in real time together."""
+    from aiohttp import web
+
+    from whisperlivekit_tpu_torch.audio.vad import SileroJITVAD
+    from whisperlivekit_tpu_torch.audio.vad_batched import BatchedVADScheduler
+    from whisperlivekit_tpu_torch.engine.core import TranscriptionEngine, WLKConfig
+    from whisperlivekit_tpu_torch.server.app import WLKServer
+    from whisperlivekit_tpu_torch.session.processor import AudioProcessor
+
+    config = WLKConfig(model_size="random:base", lan="en", pcm_input=True, vac=True, vad_backend=backend,
+                       param_dtype="bfloat16", log_level="WARNING")
+    t0 = time.perf_counter()
+    engine = TranscriptionEngine(config)
+    sched = engine.vad_scheduler
+    if backend == "jax-batched":
+        on_card = [t.device.type for t in sched.pool] + [sched.params.stft_basis.device.type] if sched else []
+        if not (isinstance(sched, BatchedVADScheduler) and set(on_card) == {"cuda"}):
+            raise AssertionError(f"vad_backend=jax-batched built {type(sched).__name__} on {on_card}")
+    elif not isinstance(engine.vac_model, SileroJITVAD):
+        raise AssertionError(f"vad_backend=auto built {type(engine.vac_model).__name__}, not the stand-in's torch.jit")
+    runner = web.AppRunner(WLKServer(config, engine=engine).app)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    host, port = runner.addresses[0][:2]
+    setup_s = time.perf_counter() - t0
+    try:
+        with VADInstrumented() as ins:
+            _reset_kernel_counts()  # the vad path's run counts from here
+            engine.scheduler.reset_stats()
+            if sched is not None:
+                sched.reset_stats()
+            t1 = time.perf_counter()
+            pcms = [speech_with_pause(VAD_SECONDS, seed=400 + s) for s in range(VAD_SESSIONS + 1)]
+            procs = [AudioProcessor(transcription_engine=engine) for _ in range(VAD_SESSIONS)]
+            lines = await asyncio.gather(*(_feed_processor(p, pcm) for p, pcm in zip(procs, pcms)),
+                                         _feed_websocket(f"http://{host}:{port}/asr", pcms[VAD_SESSIONS]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            counts = _kernel_counts()
+        stats = engine.scheduler.stats()
+        vad_stats = sched.stats() if sched is not None else None
+        solo = _vad_solo(sched, vad_stats["lanes_per_step_max"]) if sched is not None else None
+        pool_bytes = sum(t.numel() * t.element_size() for t in sched.pool) if sched is not None else 0
+    finally:
+        await runner.cleanup()
+        TranscriptionEngine.reset()
+    return dict(lines=lines, wall=wall, setup_s=setup_s, counts=counts, stats=stats, vad_stats=vad_stats,
+                solo=solo, pool_bytes=pool_bytes, ins=ins, capacity=sched.capacity if sched is not None else None)
+
+
+def _vad_gates(run: dict) -> list:
+    """Per session (in process and behind WS /asr), its gate transitions
+    [(close | open, stream seconds)] in order."""
+    by_gate = {}
+    for gid, kind, at in run["ins"].gate:
+        by_gate.setdefault(gid, []).append((kind, round(at, 3)))
+    return [by_gate.get(id(p.silence_gate), []) for p in run["ins"].procs]
+
+
+def _check_vad_run(name: str, run: dict) -> None:
+    """Words on every session; every gate opened in the first voiced span,
+    closed inside the pause and opened again after it."""
+    half = (VAD_SECONDS - 2.0) / 2  # speech_with_pause: 0.5 s quiet, half voiced, 1.5 s quiet, half voiced
+    words = [sum(len(t.split()) for t, _ in lines) for lines in run["lines"]]
+    gates = _vad_gates(run)
+    bad = [g for g in gates
+           if not (len(g) >= 3 and g[0][0] == "open" and g[0][1] < 0.5 + half
+                   and g[1][0] == "close" and 0.5 + half <= g[1][1] < 2.0 + half
+                   and g[2][0] == "open" and g[1][1] < g[2][1] < 2.5 + half)]
+    if run["stats"]["n_failed_ticks"] or "pool_recovery" in run["stats"].get("tick_phases", {}):
+        raise AssertionError(f"{name}: a tick failed or a group recovered: {run['stats']}")
+    if len(words) != VAD_SESSIONS + 1 or not all(words):
+        raise AssertionError(f"{name}: a session got no words: {words}")
+    if len(gates) != VAD_SESSIONS + 1 or bad:
+        raise AssertionError(f"{name}: a gate did not open in speech and close at its pause: {bad[:3]}")
+
+
+def phase_vad(main_run: dict) -> dict:
+    """The batched Silero VAD on the card: the stand-in written under
+    VAD_STANDIN_DIR from fixed seeds, the f32 reference (card against CPU),
+    then the serving run with ``vad_backend="jax-batched"`` and the same
+    sessions on the host path (``vad_backend="auto"``) beside it."""
+    import gc
+    import os
+
+    from whisperlivekit_tpu_torch.harness import vad_checkpoint as VC
+    from whisperlivekit_tpu_torch.harness.vocab import install_standin_vocab
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    path = VC.write_silero_standin(VAD_STANDIN_DIR, VAD_SEED, calibrate=VC.calibration_audio(VAD_SEED + 1))
+    log("vad", standin=str(path), seed=VAD_SEED, calibration_seed=VAD_SEED + 1,
+        write_s=round(time.perf_counter() - t, 2))
+    phase_reference_vad(str(path))
+    was = os.environ.get("WLK_TPU_ASSET_DIR")
+    install_standin_vocab(path.parent)
+    try:
+        run = asyncio.run(_main_path_vad("jax-batched"))
+        host = asyncio.run(_main_path_vad("auto"))
+    finally:
+        if was is None:
+            os.environ.pop("WLK_TPU_ASSET_DIR", None)
+        else:
+            os.environ["WLK_TPU_ASSET_DIR"] = was
+    stats, vs, solo, counts = run["stats"], run["vad_stats"], run["solo"], run["counts"]
+    words = [sum(len(t.split()) for t, _ in lines) for lines in run["lines"]]
+    log("vad", model="random:base bf16", vac=True, vad_backend="jax-batched", sessions=len(words),
+        audio_s_each=VAD_SECONDS, pace=PACE, words_per_session=words, wall_s=round(run["wall"], 3),
+        setup_s=round(run["setup_s"], 3), ticks=stats["n_ticks"], failed_ticks=stats["n_failed_ticks"],
+        gates_first_session=_vad_gates(run)[0])
+    log("vad", vad_steps=vs["n_steps"], frames_scored=vs["n_frames_scored"],
+        lanes_per_step_mean=vs["lanes_per_step_mean"], lanes_per_step_max=vs["lanes_per_step_max"],
+        substep_ms_p50=vs["step_ms_p50"], substep_ms_p95=vs["step_ms_p95"],
+        segment_vad_await_ms_p50=_quantile(run["ins"].vad_ms, 0.5),
+        segment_vad_await_ms_p95=_quantile(run["ins"].vad_ms, 0.95), vad_calls=len(run["ins"].vad_ms),
+        pool_lanes=run["capacity"], pool_bytes=run["pool_bytes"])
+    log("vad", solo_substep_ms_by_lanes=solo["step_ms_by_lanes"], traced_at_lanes=vs["lanes_per_step_max"],
+        kernels_per_step=solo["kernels_per_step"], copies_per_step=solo["copies_per_step"],
+        device_us_per_step=round(solo["device_us_per_step"], 2))
+    log("vad", word_emission_p50_ms=stats["word_emission_p50_ms"],
+        word_emission_p95_ms=stats.get("word_emission_p95_ms"), tick_ms_p50=stats["tick_ms_p50"],
+        main_word_emission_p50_ms=main_run["stats"]["word_emission_p50_ms"],
+        main_word_emission_p95_ms=main_run["stats"].get("word_emission_p95_ms"),
+        main_tick_ms_p50=main_run["stats"]["tick_ms_p50"])
+    log("vad", host_path="vad_backend=auto (torch.jit on the CPU, worker thread)",
+        words_per_session=[sum(len(t.split()) for t, _ in lines) for lines in host["lines"]],
+        host_vad_ms_per_chunk_p50=_quantile(host["ins"].vad_ms, 0.5),
+        host_vad_ms_per_chunk_p95=_quantile(host["ins"].vad_ms, 0.95), vad_calls=len(host["ins"].vad_ms),
+        word_emission_p50_ms=host["stats"]["word_emission_p50_ms"],
+        word_emission_p95_ms=host["stats"].get("word_emission_p95_ms"), tick_ms_p50=host["stats"]["tick_ms_p50"],
+        ticks=host["stats"]["n_ticks"], wall_s=round(host["wall"], 3))
+    log("vad", kernel="flash_encoder_attn", launches=counts["flash_encoder_attn"],
+        launches_by_SxT={f"{s}x{t}": n for (s, t), n in sorted(counts["k1_shapes"].items())},
+        host_path_launches=host["counts"]["flash_encoder_attn"])
+    _check_k1_bodies("vad", counts)
+    _check_vad_run("vad", run)
+    _check_vad_run("vad host path", host)
+    if not vs["lanes_per_step_max"] > 1:
+        raise AssertionError(f"the VAD scheduler never stepped more than one lane: {vs}")
+    if not counts["flash_encoder_attn"]:
+        raise AssertionError("K1 never launched in the vad phase")
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -3015,15 +3375,21 @@ CAUSAL_SOLO_LANES = 4    # lanes of the traced decode after the run
 
 
 @contextlib.contextmanager
-def _tf32():
-    """TF32 on for cuBLAS and cuDNN inside the block (the smoke runs with it
-    off): what a reference's tolerance must be able to catch."""
+def _tf32_flags(matmul: bool, cudnn: bool):
+    """cuBLAS's and cuDNN's TF32 flags set inside the block, the smoke's
+    (both off) restored after it."""
     was = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
     try:
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = was
+
+
+def _tf32():
+    """TF32 on for cuBLAS and cuDNN inside the block (the smoke runs with it
+    off): what a reference's tolerance must be able to catch."""
+    return _tf32_flags(True, True)
 
 
 def _top8(logits: torch.Tensor) -> list:
@@ -3904,7 +4270,9 @@ def main(argv=None) -> int:
     la = timed("la", phase_la)
     la_records = timed("kernels_la", phase_kernels_la, la["counts"]["k1_shapes"])
     dt = timed("diar_tr", phase_diar_tr, main_run)
-    dt_records = timed("kernels_diar_tr", phase_kernels_diar_tr, dt["counts"]["k1_shapes"])
+    dt_records = timed("kernels_diar_tr", phase_kernels_base, "diar_tr", dt["counts"]["k1_shapes"])
+    vad = timed("vad", phase_vad, main_run)
+    vad_records = timed("kernels_vad", phase_kernels_base, "vad", vad["counts"]["k1_shapes"])
     timed("causal", phase_causal)
     vox = timed("voxtral", phase_voxtral)
     vox_records = timed("kernels_voxtral", phase_kernels_voxtral, vox["counts"]["k1_shapes"])
@@ -3936,6 +4304,7 @@ def main(argv=None) -> int:
     k1_errs += [r["max_abs_err"] for r in beam_records.values()]
     k1_errs += [r["max_abs_err"] for r in la_records.values()]
     k1_errs += [r["max_abs_err"] for r in dt_records.values()]
+    k1_errs += [r["max_abs_err"] for r in vad_records.values()]
     k1_errs += [r["max_abs_err"] for r in vox_records.values()]
     k1_errs += [r["max_abs_err"] for r in train_records.values()]
     k1 = large_records[("flash_encoder_attn", 1500, 1500, "bfloat16")]
@@ -3953,6 +4322,7 @@ def main(argv=None) -> int:
                                        "load": load["counts"]["flash_encoder_attn"],
                                        "la": la["counts"]["flash_encoder_attn"],
                                        "diar_tr": dt["counts"]["flash_encoder_attn"],
+                                       "vad": vad["counts"]["flash_encoder_attn"],
                                        "voxtral": vox["counts"]["flash_encoder_attn"],
                                        "train": train["counts"]["flash_encoder_attn"]},
                 "xkv_splice": {"large": large["counts"]["xkv_splice"], "f8": f8["counts"]["xkv_splice"],

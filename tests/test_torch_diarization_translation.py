@@ -10,8 +10,7 @@
   no NLLB weights on the machine): equal lines, speakers and translations;
 - the engine: the factories build sessions, NLLB loads once for several
   sessions, a Sortformer checkpoint or an NLLB snapshot that fails to
-  convert raises instead of falling back, absent weights fall back, and
-  what is not ported still raises NotImplementedError.
+  convert raises instead of falling back, and absent weights fall back.
 """
 
 import asyncio
@@ -473,14 +472,3 @@ def test_sortformer_without_cuda_raises_not_falls_back(engine_env, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         load_diarization_model(SimpleNamespace(diarization_backend="sortformer", sortformer_model_path="random:"))
-
-
-@pytest.mark.parametrize("kw,match", [
-    (dict(vac=True, vad_backend="jax-batched"), "jax-batched"),
-])
-def test_what_is_not_ported_still_raises(engine_env, kw, match):
-    """Only the batched JAX VAD is still unported and raises. The qwen3,
-    voxtral and openai-api backends raised here until they were ported:
-    tests/test_torch_{qwen3,voxtral}.py route them and hold them to JAX."""
-    with pytest.raises(NotImplementedError, match=match):
-        _engine(**kw)

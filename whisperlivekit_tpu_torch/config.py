@@ -45,7 +45,7 @@ class WLKConfig:
     alignatt_context: str = ""
     vac: bool = True                         # voice-activity-controlled segmentation
     vac_chunk_size: float = 0.04             # seconds per VAD tick
-    vad_backend: str = "auto"                # auto (host silero/energy) | jax-batched
+    vad_backend: str = "auto"                # auto (host silero/energy) | jax-batched (batched Silero on the engine's device)
     log_level: str = "DEBUG"
     ssl_certfile: Optional[str] = None
     ssl_keyfile: Optional[str] = None

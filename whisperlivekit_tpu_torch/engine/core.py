@@ -28,8 +28,9 @@ NLLB on the engine's device, loaded once on its first session; the AlignAtt
 sidecar client; echo when the NLLB weights are absent) build their shared
 models here, as the JAX engine does.
 
-What is not ported yet raises NotImplementedError naming the module: the
-batched JAX VAD.
+``vad_backend="jax-batched"`` (the JAX package's name) builds the batched
+Silero VAD (``audio/vad_batched.py``) with its state pool on the engine's
+device; only a missing ``silero_vad.jit`` falls back to the host VAD.
 """
 
 from __future__ import annotations
@@ -321,10 +322,20 @@ class TranscriptionEngine:
 
         if config.vac:
             if config.vad_backend == "jax-batched":
-                raise NotImplementedError("vad_backend='jax-batched' (audio/vad_batched.py) is not ported yet")
-            from ..audio.vad import load_vad_model
+                from ..audio.vad_batched import BatchedVADScheduler
 
-            self.vac_model = load_vad_model()
+                # only absent weights fall back (JAX falls back on any error)
+                try:
+                    self.vad_scheduler = BatchedVADScheduler(
+                        max_lanes=4 * config.max_batch_sessions, device=self.device
+                    )
+                    logger.info("batched Silero VAD scheduler on %s", self.device)
+                except FileNotFoundError as e:
+                    logger.warning("jax-batched VAD unavailable (%s); host VAD", e)
+            if self.vad_scheduler is None:
+                from ..audio.vad import load_vad_model
+
+                self.vac_model = load_vad_model()
         if config.diarization:
             from ..diarization import load_diarization_model
 
