@@ -87,7 +87,36 @@ Phases (each prints lines; any failure raises and exits non-zero):
              Checks every answer (200s, clean closes), that the two json
              posts agree, that no tick failed and no group recovered, and
              that K1 (wgmma), K2 and K3 (bulk route) launched.
-9. la      — offline decoding and the re-transcription policies: decode at
+9. groups  — the large form with two lane groups resident, and the
+             whole-group anchor's memory budget: at large-v3-turbo widths
+             with the encoder cut to 4 layers, f32, four sessions in two
+             2-wide groups on the card and on the CPU; the card's engine
+             measures the whole-group anchor's transient through its warm
+             pass (precompile_serving_programs) and its guard decides from
+             that and the card's free bytes (the CPU is handed the card's
+             figures). Group 1 re-anchors while group 0 stays resident:
+             both devices take the whole-group program with equal integer
+             outputs, and group 0's pools keep every bit; the same anchor,
+             started again from group 1's copied pools with the guard given
+             one byte too few, takes the chunked program with the same
+             integer outputs and pools within 1e-4. Then
+             ``random:large-v3-turbo`` bf16 at full width with 8-wide
+             groups: the scheduler's warm pass (each program's seconds and
+             transient bytes), the transient at every prefix bucket a
+             pooled anchor takes (it must not grow as the bucket shrinks),
+             then 12 AudioProcessor sessions and one ``WS /asr`` stream
+             joining together, in real time (two groups, 8 + 5). Checks
+             that every guard decision (printed with its free bytes,
+             transient, margin and answer) that ran the whole-group anchor
+             with both groups resident read measured bytes, that there was
+             one, that each such call's peak over its starting allocation
+             stayed within its transient plus the margin, that every
+             session got words, that no tick failed and no group
+             recovered, and that K1 and K2 launched. Then both anchor
+             routes timed at the group's width on scratch pools, in turns,
+             and the transient at the default lane caps (turbo 64 lanes,
+             large-v3 24 with bf16 and with f8 pools).
+10. la     — offline decoding and the re-transcription policies: decode at
              temperature 0, beam_decode at 4 beams and transcribe with word
              timestamps over two windows, in f32 at base widths with 2+2
              layers, on the card (K1's f32 body) against the CPU (equal
@@ -105,7 +134,7 @@ Phases (each prints lines; any failure raises and exits non-zero):
              (torch.profiler). Then K1 in bf16 against its plain version at
              every (S, T) that run launched, failing on any it did not
              check.
-10. diar_tr — diarization and translation: Sortformer at full width
+11. diar_tr — diarization and translation: Sortformer at full width
              (SortformerDims: 128 mels, an 18-layer conformer at 512, an
              18-layer head at 192, 4 speakers, spkcache and FIFO 188) over
              20 chunks and NLLB at 600M widths with 2+2 layers (the greedy
@@ -130,7 +159,7 @@ Phases (each prints lines; any failure raises and exits non-zero):
              the word emission beside the main phase's. Then K1 in bf16
              against its plain version at every (S, T) that run launched
              (the encoder's full window and tail, the prefill buckets).
-11. vad     — the batched Silero VAD (vad_backend="jax-batched"): a
+12. vad     — the batched Silero VAD (vad_backend="jax-batched"): a
              stand-in in Silero v6's layout written under build/ from fixed
              seeds (harness/vad_checkpoint.py, its head calibrated on audio
              of other seeds), its tower over 64 lanes x 90 frames on the
@@ -153,7 +182,7 @@ Phases (each prints lines; any failure raises and exits non-zero):
              worker thread) beside it, checked the same way. Then K1 in
              bf16 against its plain version at every (S, T) the batched run
              launched.
-12. causal  — Qwen3-ASR causal: at the 0.6B model's full widths with 4+4
+13. causal  — Qwen3-ASR causal: at the 0.6B model's full widths with 4+4
              layers in f32, two blocks appended and a hypothesis decoded on
              the card against the CPU (tokens and each block's top-8 ids
              equal, logits within 1e-4, and the same card run with TF32 on
@@ -171,7 +200,7 @@ Phases (each prints lines; any failure raises and exits non-zero):
              traced decode alone, the pools' bytes per lane, peak card
              memory over the weights, and the word emission (a tick's call
              to its result, p50 / p95).
-13. voxtral — Voxtral: at Voxtral-Mini-3B's widths with 2+2 layers in f32
+14. voxtral — Voxtral: at Voxtral-Mini-3B's widths with 2+2 layers in f32
              on the card against the CPU (greedy tokens and the top-8 ids
              equal, logits within 1e-4, and the same card run with TF32 on
              outside 1e-4); then one checkpoint at those widths with 4+4
@@ -186,7 +215,7 @@ Phases (each prints lines; any failure raises and exits non-zero):
              prints a transcribe's ms and launches a step alone and the
              backend lock's A/B. Then K1 in bf16 against its plain version
              at every (S, T) that run launched.
-14. train   — the structured-weights trainer (harness/train_structured.py,
+15. train   — the structured-weights trainer (harness/train_structured.py,
              parallel/train.py): the train step at base widths with 2+2
              layers, f32, batch 2, on the card against the CPU (every
              step's loss, every gradient of the first, the weights after
@@ -211,7 +240,7 @@ Phases (each prints lines; any failure raises and exits non-zero):
              tokens per lane tick and the ticks' stop reasons (end of text
              among them). Then K1 in bf16 against its plain version at every
              (S, T) that run launched.
-15. kernels — the large form's kernels at the shapes its engines give them:
+16. kernels — the large form's kernels at the shapes its engines give them:
              K1 at the encoder's two shapes, every prefix bucket over the
              dense cross-KV and over the pool, and both refresh widths, and
              at every (S, T) the large, f8 and load runs launched; K2
@@ -1319,7 +1348,8 @@ def _quantile(xs, q):
 class Instrumented:
     """Counts the calls of the named tick programs (wrapped on the alignatt
     facade, where the dispatch looks them up), records the peak device
-    memory over each call of ``peak_of``, times every dispatched group
+    memory over each call of ``peak_of`` (and above the call's starting
+    allocation), times every dispatched group
     from dispatch to fetch, by mode, and times each language detection on
     the host's clock (the mel, the batch-1 encode and the decoder step,
     which run outside the scheduler's batched tick). Restores everything on
@@ -1334,6 +1364,7 @@ class Instrumented:
         self.A, self.D, self.S, self.peak_of = A, D, AlignAttSession, peak_of
         self.calls = dict.fromkeys(programs, 0)
         self.peaks, self.phase_ms, self.detect_ms = [], {}, []
+        self.over_start = []  # each peak_of call's peak above its starting allocation
         self.sessions = {}  # id -> every AlignAttSession that prepared a tick, in order
         # id -> (first timestamp s, window s) at the first tick that saw it set
         self.first_ts = {}
@@ -1345,9 +1376,11 @@ class Instrumented:
                 return real(*a, **k)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
             out = real(*a, **k)
             torch.cuda.synchronize()
             self.peaks.append(torch.cuda.max_memory_allocated())
+            self.over_start.append(self.peaks[-1] - start)
             return out
         return wrapped
 
@@ -2116,6 +2149,383 @@ def phase_load(card: str) -> dict:
     if not counts["xkv_splice"] or not counts["k1_shapes"].get((1500, 1500)):
         raise AssertionError(f"K2 or K1's full window never launched: {counts}")
     log("load", geometry=run["geom"])
+    return run
+
+
+GROUP_MODEL = "large-v3-turbo"   # 1280 wide, 32+4 layers, 128 mels; random weights, bf16
+GROUP_SESSIONS = 12      # AudioProcessor sessions in process, plus one over WS /asr: two 8-wide groups (8 + 5)
+GROUP_SECONDS = 20.0
+GROUP_REF_LAYERS = 4     # encoder depth of the f32 card-vs-CPU reference (turbo widths, its own 4-layer decoder)
+GROUP_REF_WIDTH = 2      # lanes per group in the reference (four sessions, two groups)
+GROUP_POOL_TOL = 1e-4    # the two anchor routes' pools: max |difference| over max(1, max |value|)
+# the transients at the default lane caps (scheduler._auto_lane_cap at the
+# default max_batch_sessions): model, group width, pool dtype, alignment
+# heads ("published": the model's own; "fallback": every head of the upper
+# half of the decoder, what a checkpoint without a known size name gets)
+GROUP_CAPS = (("large-v3-turbo", 64, "bf16", "published"), ("large-v3", 24, "bf16", "published"),
+              ("large-v3", 24, "bf16", "fallback"), ("large-v3", 24, "f8", "published"))
+GROUP_AB_ITERS = 5       # whole-group against chunked anchor timing, calls each after 3 warm-up calls
+
+
+@contextlib.contextmanager
+def _budget(free=None, temp=None):
+    """Stand-in free or transient bytes for the whole-group anchor's guard
+    (the smoke's own: the serving code reads the real ones)."""
+    from whisperlivekit_tpu_torch.streaming import alignatt as A
+
+    reals = A._device_free_bytes, A._anchor_group_temp_bytes
+    if free is not None:
+        A._device_free_bytes = lambda *a: free
+    if temp is not None:
+        A._anchor_group_temp_bytes = lambda *a: temp
+    try:
+        yield
+    finally:
+        A._device_free_bytes, A._anchor_group_temp_bytes = reals
+
+
+class GuardLog:
+    """Records every decision of the whole-group anchor's guard (wrapped on
+    the dispatch module, where the anchor dispatch looks it up) with the
+    free bytes, measured transient and margin it read."""
+
+    def __enter__(self):
+        from whisperlivekit_tpu_torch.streaming import alignatt as A
+        from whisperlivekit_tpu_torch.streaming import dispatch as D
+
+        self.D, self.real, self.decisions = D, D._whole_group_anchor_fits, []
+
+        def fits(engine, xkv, gi, G, p_max):
+            free = A._device_free_bytes(engine.device)
+            temp = A._anchor_group_temp_bytes(engine, xkv, G, p_max)
+            ok = self.real(engine, xkv, gi, G, p_max)
+            self.decisions.append(dict(group=gi, groups=len(xkv.groups), G=G, p_max=p_max, free=free,
+                                       temp=temp, margin=A._ANCHOR_HBM_MARGIN, fits=ok))
+            return ok
+        D._whole_group_anchor_fits = fits
+        return self
+
+    def __exit__(self, *exc):
+        self.D._whole_group_anchor_fits = self.real
+
+
+def _group_state(g) -> dict:
+    return {n: getattr(g, n).clone() for n in ("k", "v", "skv_k", "skv_v", "asum", "asq", "alast", "acount", "tok")}
+
+
+def _state_equal(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[n].view(torch.uint8) if a[n].is_floating_point() else a[n],
+                           b[n].view(torch.uint8) if b[n].is_floating_point() else b[n]) for n in a)
+
+
+def phase_reference_groups(tok_for) -> None:
+    """Two resident groups at turbo widths (the encoder cut to
+    GROUP_REF_LAYERS layers), f32, four sessions in two 2-wide groups, on
+    the card and on the CPU. The card's engine measures the whole-group
+    anchor's transient through its warm pass (precompile_serving_programs),
+    and its guard decides from that and the card's free bytes; the CPU,
+    which has no memory statistics, is handed the card's transient and just
+    enough free bytes. A first tick anchors both groups; then group 1's
+    sessions lose their self-KV mirrors and re-anchor together while group 0
+    stays resident: both devices run the whole-group program, their integer
+    outputs equal and group 0's pools keep every bit. The same anchor,
+    started again on the card from group 1's copied pools with the guard
+    given one byte less than the transient and margin, takes the chunked
+    route: its integer outputs equal the whole-group route's and its pools
+    agree within GROUP_POOL_TOL (the self-KV pools over each lane's live
+    rows)."""
+    from dataclasses import replace
+
+    from whisperlivekit_tpu_torch.engine.core import MODEL_DIMS
+    from whisperlivekit_tpu_torch.models.whisper import model as wm
+    from whisperlivekit_tpu_torch.streaming import alignatt as A
+    from whisperlivekit_tpu_torch.streaming.dispatch import precompile_serving_programs, run_tick_batch
+
+    dims = replace(MODEL_DIMS[GROUP_MODEL], n_audio_layer=GROUP_REF_LAYERS)
+    tok = tok_for(dims)
+    sides = {}
+    for side, dev in (("card", CARD), ("cpu", "cpu")):
+        model = wm.init_params(dims, torch.Generator().manual_seed(6), torch.float32, dev)
+        eng = A.AlignAttEngine(model, dims, tok, A.AlignAttConfig(language="en"))
+        pool, enc_pool = A.AudioPool(8, device=dev), A.EncPool(9, dims, torch.float32, dev)
+        xkv = A.XKVAllocator.for_engine(eng, GROUP_REF_WIDTH, epoch_period=50)
+        sessions = [A.AlignAttSession(eng) for _ in range(2 * GROUP_REF_WIDTH)]
+        for s in sessions:
+            s.pool, s.enc_pool, s.xkv_alloc = pool, enc_pool, xkv
+        sides[side] = (eng, pool, enc_pool, xkv, sessions)
+    eng, pool, enc_pool, xkv, _ = sides["card"]
+    warm = precompile_serving_programs(eng, xkv, enc_pool.capacity, pool.capacity)
+    p_cap = eng.bucket_for(eng.serving_prefix_cap)
+    temp = A._anchor_group_temp_bytes(eng, xkv, GROUP_REF_WIDTH, p_cap)
+    log("reference", model=f"{GROUP_MODEL} widths, {GROUP_REF_LAYERS}+{dims.n_text_layer} layers, f32 random",
+        warm_s=warm, transient_bytes=eng._serving_transient_bytes)
+    if temp is None:
+        raise AssertionError("the card's warm pass measured no whole-group anchor transient")
+    ints = lambda o: (o.new_tokens, [int(f) for f in o.frames], o.n_keep, o.reason,  # noqa: E731
+                      o.last_attend, o.fire)
+    pcms = [speech_pcm(8.0, seed=60 + i).astype(np.float32) / 32768.0 for i in range(2 * GROUP_REF_WIDTH)]
+    res = {}
+    for side, (eng, pool, enc_pool, xkv, sessions) in sides.items():
+        stub = _budget(free=temp + A._ANCHOR_HBM_MARGIN, temp=temp) if side == "cpu" else contextlib.nullcontext()
+        outs_by_tick = []
+        with stub, Instrumented(("alignatt_tick_anchor_group", "alignatt_tick_anchor_pooled")) as ins, \
+                GuardLog() as guard, torch.inference_mode():
+            for tick in range(2):
+                live = sessions if tick == 0 else [s for s in sessions if s.xkv_gi == 1]
+                tis = []
+                for j, s in enumerate(live):
+                    if tick:
+                        s.skv_tokens = None  # a lost mirror: this tick re-anchors
+                    s.insert_audio(pcms[j][:96000] if tick == 0 else pcms[j][96000:112000])
+                    tis.append(s.prepare_tick(False))
+                if tick:  # the state the chunked route starts again from
+                    start = (_group_state(xkv.groups[1]), enc_pool.pool.clone(), pool.pool.clone())
+                    g0 = _group_state(xkv.groups[0])
+                outs = run_tick_batch(eng, tis, tok, pool=pool, enc_pool=enc_pool, xkv=xkv)
+                for s, ti, o in zip(live, tis, outs):
+                    s.finish_tick(ti, o)
+                outs_by_tick.append(([t.enc_mode for t in tis], [ints(o) for o in outs]))
+            g0_kept = _state_equal(g0, _group_state(xkv.groups[0]))
+        res[side] = dict(outs=outs_by_tick, calls=dict(ins.calls), decisions=guard.decisions, g0_kept=g0_kept)
+        if side == "card":  # tick 1 again from its starting state, the guard refusing
+            g = xkv.groups[1]
+            with _budget(free=temp + A._ANCHOR_HBM_MARGIN - 1), torch.inference_mode(), \
+                    Instrumented(("alignatt_tick_anchor_group", "alignatt_tick_anchor_pooled")) as ins:
+                whole = _group_state(g)
+                for n, t in start[0].items():
+                    getattr(g, n).copy_(t)
+                enc_pool.pool.copy_(start[1])
+                pool.pool.copy_(start[2])
+                chunked = run_tick_batch(eng, tis, tok, pool=pool, enc_pool=enc_pool, xkv=xkv)
+                # self-KV rows past a lane's mirror (prefix + kept tokens) are
+                # masked leftovers: the chunked prefill runs at the cap's
+                # bucket, the whole-group one at the lanes' own
+                live = [(s.xkv_slot, len(s.skv_tokens)) for s in sessions if s.xkv_gi == 1]
+                got = {n: getattr(g, n) for n in whole}
+                for n in ("skv_k", "skv_v"):
+                    got[n], whole[n] = (torch.cat([t[:, sl, :rows].flatten() for sl, rows in live])
+                                        for t in (got[n], whole[n]))
+                pool_err = {n: float((got[n].float() - w.float()).abs().max()
+                                     / max(1.0, float(w.float().abs().max()))) for n, w in whole.items()}
+            res["chunked"] = dict(outs=[ints(o) for o in chunked], calls=dict(ins.calls), pool_err=pool_err)
+    card, cpu, ch = res["card"], res["cpu"], res["chunked"]
+    for side in ("card", "cpu"):
+        log("reference", side=side, modes=[m for m, _ in res[side]["outs"]], programs=res[side]["calls"],
+            guard=[(d["groups"], d["free"], d["temp"], d["margin"], d["fits"]) for d in res[side]["decisions"]],
+            group0_pools_kept=res[side]["g0_kept"])
+    log("reference", tick=1, route="chunked (guard given free = transient + margin - 1)", programs=ch["calls"],
+        ints_equal_whole_group=ch["outs"] == card["outs"][1][1],
+        pool_err_vs_whole_group={n: f"{e:.3g}" for n, e in ch["pool_err"].items()}, tol=GROUP_POOL_TOL)
+    want_calls = {"alignatt_tick_anchor_group": 3, "alignatt_tick_anchor_pooled": 0}
+    ok = (card["outs"] == cpu["outs"] and card["calls"] == want_calls == cpu["calls"]
+          and all(d["groups"] == 2 and d["fits"] for d in card["decisions"]) and len(card["decisions"]) == 3
+          and card["g0_kept"] and cpu["g0_kept"]
+          and ch["calls"] == {"alignatt_tick_anchor_group": 0, "alignatt_tick_anchor_pooled": 1}
+          and ch["outs"] == card["outs"][1][1] and max(ch["pool_err"].values()) <= GROUP_POOL_TOL)
+    log("reference", model=f"{GROUP_MODEL} widths, two groups", card_equals_cpu=card["outs"] == cpu["outs"], ok=ok)
+    if not ok:
+        raise AssertionError("two resident groups: the card's whole-group anchor disagrees with the CPU, "
+                             "touched the other group, or the chunked route disagrees")
+
+
+def _anchor_route_ms(eng, xkv, p_max: int) -> tuple:
+    """The whole-group anchor and the chunked anchor at B = the group's
+    width, on scratch pools at the group's shapes, in turns: ms by CUDA
+    events over GROUP_AB_ITERS calls each after 3 warm-up calls."""
+    from whisperlivekit_tpu_torch.streaming.dispatch import _ScratchGroup
+
+    scratch = _ScratchGroup(eng, xkv, xkv.group_width, xkv.group_width)
+    with torch.inference_mode():
+        whole, chunked = scratch.anchor_group(p_max), scratch.anchor_pooled(xkv.group_width, p_max)
+        runs = [(_time_ms(whole, GROUP_AB_ITERS), _time_ms(chunked, GROUP_AB_ITERS)) for _ in range(2)]
+    del whole, chunked, scratch
+    return [r[0] for r in runs], [r[1] for r in runs]
+
+
+def _cap_transients(turbo_eng) -> list:
+    """The whole-group anchor's transient at the default lane caps
+    (GROUP_CAPS) at the cap's prefix bucket, measured on scratch pools:
+    turbo on the phase's own engine, large-v3 on random weights drawn for
+    it (bf16, then its decoder quantized for the f8 pools), with the
+    serving engine's decode budget."""
+    from whisperlivekit_tpu_torch.engine.core import MODEL_DIMS
+    from whisperlivekit_tpu_torch.models.whisper import model as wm
+    from whisperlivekit_tpu_torch.streaming import alignatt as A
+    from whisperlivekit_tpu_torch.streaming.dispatch import measure_anchor_group_temp_bytes
+
+    out, large = [], None
+    for model, G, pools, heads in GROUP_CAPS:
+        if model == GROUP_MODEL:
+            eng = turbo_eng
+        else:
+            if large is None:
+                dims = MODEL_DIMS[model]
+                large = wm.init_params(dims, torch.Generator().manual_seed(8), torch.bfloat16, "cuda")
+            if pools == "f8" and large.decoder.blocks[0].fc1.weight.dtype != torch.float8_e4m3fn:
+                wm.quantize_decoder_f8(large)
+            eng = A.AlignAttEngine(large, MODEL_DIMS[model], turbo_eng.tokenizer,
+                                   A.AlignAttConfig(language="en", xkv_cache_dtype=pools,
+                                                    max_steps=turbo_eng.cfg.max_steps),
+                                   model_name=model if heads == "published" else None)
+        saved = dict(getattr(eng, "_anchor_temp_cache", {}))
+        xkv = A.XKVAllocator.for_engine(eng, G)
+        p_cap = eng.bucket_for(eng.serving_prefix_cap)
+        t = time.perf_counter()
+        temp = measure_anchor_group_temp_bytes(eng, xkv, G, p_cap)
+        out.append(dict(model=model, G=G, pools=str(xkv.dtype).replace("torch.", ""),
+                        decoder="f8" if pools == "f8" else "bf16", heads=heads,
+                        align_heads=int(eng.align_layers.shape[0]), p_max=p_cap, transient_bytes=temp,
+                        transient_GiB=round(temp / 2**30, 3), s=round(time.perf_counter() - t, 3),
+                        pool_bytes=G * A.XKVGroupPool.row_bytes(eng.dims, xkv.dtype, xkv.skv_width,
+                                                                xkv.align_count, xkv.skv_dtype)))
+        eng._anchor_temp_cache = saved
+    del large
+    return out
+
+
+async def _main_path_groups() -> dict:
+    from aiohttp import web
+
+    from whisperlivekit_tpu_torch.engine.core import TranscriptionEngine, WLKConfig
+    from whisperlivekit_tpu_torch.server.app import WLKServer
+    from whisperlivekit_tpu_torch.session.processor import AudioProcessor
+    from whisperlivekit_tpu_torch.streaming import alignatt as A
+    from whisperlivekit_tpu_torch.streaming.dispatch import measure_anchor_group_temp_bytes
+
+    # 8-wide groups (the one cut: two groups fit in a short phase); an 8 s
+    # window evicts every 4 s, so both groups pass anchor epochs together
+    config = WLKConfig(model_size=f"random:{GROUP_MODEL}", lan="en", pcm_input=True, vac=False,
+                       param_dtype="bfloat16", log_level="WARNING", max_batch_sessions=LG,
+                       audio_max_len=8.0)
+    t0 = time.perf_counter()
+    engine = TranscriptionEngine(config)
+    init_s = time.perf_counter() - t0
+    if engine.device.type != "cuda":
+        raise AssertionError(f"engine landed on {engine.device}, not the card")
+    eng, sched = engine.asr.engine, engine.scheduler
+    warm = dict(seconds=sched.warm_times, transient_bytes=dict(eng._serving_transient_bytes))
+    runner = web.AppRunner(WLKServer(config, engine=engine).app)
+    await runner.setup()  # startup runs the engine's warmup tick
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    host, port = runner.addresses[0][:2]
+    setup_s = time.perf_counter() - t0
+    try:
+        # every prefix bucket a pooled anchor can take (prefixes stop at the
+        # serving cap), measured on scratch pools; the engine's own figures
+        # (the warm pass's) are put back before the run
+        saved = dict(eng._anchor_temp_cache)
+        buckets = [b for b in eng.prefix_buckets if b <= eng.bucket_for(eng.serving_prefix_cap)]
+        by_bucket = {b: measure_anchor_group_temp_bytes(eng, sched.xkv, LG, b) for b in buckets}
+        eng._anchor_temp_cache = saved
+        with Instrumented(LARGE_PROGRAMS, peak_of="alignatt_tick_anchor_group") as ins, GuardLog() as guard:
+            _reset_kernel_counts()
+            sched.reset_stats()
+            t1 = time.perf_counter()
+            pcms = [speech_pcm(GROUP_SECONDS, seed=80 + s) for s in range(GROUP_SESSIONS + 1)]
+            procs = [AudioProcessor(transcription_engine=engine) for _ in range(GROUP_SESSIONS)]
+            texts = await asyncio.gather(
+                *(_feed_processor(p, pcm) for p, pcm in zip(procs, pcms)),
+                _feed_websocket(f"http://{host}:{port}/asr", pcms[-1]),
+            )
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            counts = _kernel_counts()
+        stats = sched.stats()
+        phases = dict(A.TICK_PHASE_STATS)
+        geom = _large_geom(engine)
+        whole_ms, chunked_ms = _anchor_route_ms(eng, sched.xkv, eng.bucket_for(eng.serving_prefix_cap))
+        caps = _cap_transients(eng)
+    finally:
+        await runner.cleanup()
+        TranscriptionEngine.reset()
+    return dict(texts=texts, wall=wall, init_s=init_s, setup_s=setup_s, warm=warm, by_bucket=by_bucket,
+                counts=counts, stats=stats, phases=phases, calls=ins.calls, over_start=ins.over_start,
+                decisions=guard.decisions, geom=geom, whole_ms=whole_ms, chunked_ms=chunked_ms, caps=caps)
+
+
+def phase_groups() -> dict:
+    """The large form with two lane groups resident: card against CPU
+    (phase_reference_groups), then ``random:large-v3-turbo`` bf16 at full
+    width with 8-wide groups: the scheduler's warm pass (each program's
+    seconds and transient bytes), the whole-group anchor's transient at
+    every prefix bucket, then 12 AudioProcessor sessions and one ``WS
+    /asr`` stream joining together (two groups, 8 + 5). Every guard
+    decision prints its free bytes, transient, margin and answer; a
+    whole-group anchor must run with both groups resident, decided from
+    measured bytes, and each must stay within its transient plus the
+    margin over its starting allocation. Then both anchor routes timed at
+    the group's width, and the transients at the default lane caps."""
+    import gc
+    import tempfile
+
+    from whisperlivekit_tpu_torch.engine.core import get_tokenizer
+    from whisperlivekit_tpu_torch.harness.vocab import install_standin_vocab
+
+    def tok_for(dims):
+        return get_tokenizer(True, num_languages=dims.num_languages, language="en", task="transcribe")
+
+    with tempfile.TemporaryDirectory(prefix="wlk_vocab_") as vocab_dir:
+        install_standin_vocab(vocab_dir)
+        phase_reference_groups(tok_for)
+        gc.collect()
+        torch.cuda.empty_cache()
+        run = asyncio.run(_main_path_groups())
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats, counts = run["stats"], run["counts"]
+    words = [sum(len(t.split()) for t, _ in lines) for lines in run["texts"]]
+    gib = lambda b: round(b / 2**30, 3) if b is not None else None  # noqa: E731
+    log("groups", model=f"random:{GROUP_MODEL} bf16", group_width=LG, sessions=len(words),
+        audio_s_each=GROUP_SECONDS, pace=PACE, words_per_session=words, wall_s=round(run["wall"], 3),
+        engine_init_s=round(run["init_s"], 3), setup_s=round(run["setup_s"], 3), ticks=stats["n_ticks"],
+        avg_lanes=stats["avg_lanes_per_tick"], tick_ms_p50=stats["tick_ms_p50"],
+        tick_ms_p95=stats["tick_ms_p95"], word_emission_p50_ms=stats["word_emission_p50_ms"],
+        word_emission_p95_ms=stats["word_emission_p95_ms"], failed_ticks=stats["n_failed_ticks"],
+        xkv=stats.get("xkv"))
+    log("groups", warm_pass_s=run["warm"]["seconds"],
+        warm_pass_transient_GiB={k: gib(b) for k, b in run["warm"]["transient_bytes"].items()})
+    log("groups", anchor_group_transient_bytes_by_bucket=run["by_bucket"],
+        GiB={b: gib(t) for b, t in run["by_bucket"].items()})
+    for cap in run["caps"]:
+        log("groups", default_cap=True, **cap)
+    for key, ph in stats["tick_phases"].items():
+        log("groups", tick_phase=key, **ph)
+    log("groups", programs=run["calls"], anchor_reasons=stats["anchor_reasons"])
+    for d in run["decisions"]:
+        log("groups", guard=True, **d)
+    whole = [d for d in run["decisions"] if d["fits"]]
+    log("groups", anchor_group_over_start_GiB=[gib(b) for b in run["over_start"]],
+        budget_GiB=[gib(d["temp"] + d["margin"]) for d in whole])
+    log("groups", anchor_ms_whole_group=[round(x, 2) for x in run["whole_ms"]],
+        anchor_ms_chunked=[round(x, 2) for x in run["chunked_ms"]], lanes=LG)
+    log("groups", kernel="flash_encoder_attn", launches=counts["flash_encoder_attn"],
+        launches_by_SxT={f"{s}x{t}": n for (s, t), n in sorted(counts["k1_shapes"].items())})
+    log("groups", kernel="xkv_splice", launches=counts["xkv_splice"])
+    _check_k1_bodies("groups", counts)
+    if stats["n_failed_ticks"]:
+        raise AssertionError(f"{stats['n_failed_ticks']} batch ticks failed")
+    if "pool_recovery" in run["phases"]:
+        raise AssertionError(f"a lane group recovered: {run['phases']['pool_recovery']}")
+    if not all(words):
+        raise AssertionError(f"a session got no words: {words}")
+    if stats["xkv"]["n_groups"] < 2:
+        raise AssertionError(f"the run held {stats['xkv']['n_groups']} lane groups, not two")
+    shared = [d for d in whole if d["groups"] >= 2]
+    if not shared or any(d["temp"] is None or d["free"] is None for d in shared):
+        raise AssertionError("no whole-group anchor ran with two groups resident, or one ran without measured "
+                             f"bytes: {shared}")
+    if len(whole) != run["calls"]["alignatt_tick_anchor_group"] or len(run["over_start"]) != len(whole):
+        raise AssertionError(f"{len(whole)} guard approvals against {run['calls']} whole-group calls")
+    over = [(b, d["temp"] + d["margin"]) for b, d in zip(run["over_start"], whole) if b > d["temp"] + d["margin"]]
+    if over:
+        raise AssertionError(f"whole-group anchors past their transient and margin: {over}")
+    figures = [run["by_bucket"][b] for b in sorted(run["by_bucket"])]
+    if any(a > b for a, b in zip(figures, figures[1:])):
+        raise AssertionError(f"the transient grows as the bucket shrinks: {run['by_bucket']}")
+    if not (counts["flash_encoder_attn"] and counts["xkv_splice"]):
+        raise AssertionError(f"a kernel never launched: {counts}")
+    log("groups", geometry=run["geom"])
     return run
 
 
@@ -4267,6 +4677,7 @@ def main(argv=None) -> int:
     beam = timed("beam", phase_beam)
     beam_records = timed("kernels_beam", phase_kernels_beam, beam["counts"]["k1_shapes"])
     load = timed("load", phase_load, card)
+    groups = timed("groups", phase_groups)
     la = timed("la", phase_la)
     la_records = timed("kernels_la", phase_kernels_la, la["counts"]["k1_shapes"])
     dt = timed("diar_tr", phase_diar_tr, main_run)
@@ -4279,9 +4690,10 @@ def main(argv=None) -> int:
     train = timed("train", phase_train)
     train_records = timed("kernels_train", phase_kernels_train, train["counts"]["k1_shapes"])
     large_records = timed("kernels_large", phase_kernels_large,
-                          {"large-v3": large["geom"], "large-v3 f8": f8["geom"], LOAD_MODEL: load["geom"]},
+                          {"large-v3": large["geom"], "large-v3 f8": f8["geom"], LOAD_MODEL: load["geom"],
+                           f"{GROUP_MODEL} groups": groups["geom"]},
                           Counter(large["counts"]["k1_shapes"]) + Counter(f8["counts"]["k1_shapes"])
-                          + Counter(load["counts"]["k1_shapes"]))
+                          + Counter(load["counts"]["k1_shapes"]) + Counter(groups["counts"]["k1_shapes"]))
     k3_launched = (Counter(front["counts"]["k3_shapes"]) + Counter(large["counts"]["k3_shapes"])
                    + Counter(f8["counts"]["k3_shapes"]) + Counter(load["counts"]["k3_shapes"]))
     k3_records = timed("kernels_k3", phase_kernels_k3, k3_launched)
@@ -4320,13 +4732,14 @@ def main(argv=None) -> int:
                                        "f8": f8["counts"]["flash_encoder_attn"],
                                        "beam": beam["counts"]["flash_encoder_attn"],
                                        "load": load["counts"]["flash_encoder_attn"],
+                                       "groups": groups["counts"]["flash_encoder_attn"],
                                        "la": la["counts"]["flash_encoder_attn"],
                                        "diar_tr": dt["counts"]["flash_encoder_attn"],
                                        "vad": vad["counts"]["flash_encoder_attn"],
                                        "voxtral": vox["counts"]["flash_encoder_attn"],
                                        "train": train["counts"]["flash_encoder_attn"]},
                 "xkv_splice": {"large": large["counts"]["xkv_splice"], "f8": f8["counts"]["xkv_splice"],
-                               "load": load["counts"]["xkv_splice"]},
+                               "load": load["counts"]["xkv_splice"], "groups": groups["counts"]["xkv_splice"]},
                 "log_mel_pallas": {"front": front["counts"]["log_mel_pallas"],
                                    "large": large["counts"]["log_mel_pallas"],
                                    "f8": f8["counts"]["log_mel_pallas"],

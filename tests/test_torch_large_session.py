@@ -275,11 +275,11 @@ def test_pooled_failure_recovers_and_serves(engines, monkeypatch, caplog):
 
 
 def test_whole_group_anchor_budget_guard(engines):
-    """The guard takes the JAX package's fallback for an unknown anchor
-    transient (the port has no estimate of it): whole-group anchors only
-    while one group is resident, and a memoized failure blocks them on
-    that group for good. The JAX guard, which has no memory figures on the
-    CPU either, gives the same answers."""
+    """On the CPU neither package has memory statistics, so both guards
+    take the JAX package's fallback: whole-group anchors only while one
+    group is resident, and a memoized failure blocks them on that group for
+    good. Both packages' guards take the same arguments and give the same
+    answers."""
     je, te, tok = engines
     from whisperlivekit_tpu.streaming.dispatch import _whole_group_anchor_fits as jax_fits
     from whisperlivekit_tpu_torch.streaming.dispatch import _whole_group_anchor_fits
@@ -288,15 +288,15 @@ def test_whole_group_anchor_budget_guard(engines):
     answers = []
     for x in allocs:
         assert x.acquire() == (0, 0)
-    answers.append([_whole_group_anchor_fits(allocs[0], 0), jax_fits(je, allocs[1], 0, 1, 64)])
+    answers.append([_whole_group_anchor_fits(te, allocs[0], 0, 1, 64), jax_fits(je, allocs[1], 0, 1, 64)])
     for x in allocs:
         x.acquire()
         assert len(x.groups) == 2
-    answers.append([_whole_group_anchor_fits(allocs[0], 0), jax_fits(je, allocs[1], 0, 1, 64)])
+    answers.append([_whole_group_anchor_fits(te, allocs[0], 0, 1, 64), jax_fits(je, allocs[1], 0, 1, 64)])
     for x in allocs:
         x.groups.pop()
         x.groups[0].whole_anchor_blocked = True
-    answers.append([_whole_group_anchor_fits(allocs[0], 0), jax_fits(je, allocs[1], 0, 1, 64)])
+    answers.append([_whole_group_anchor_fits(te, allocs[0], 0, 1, 64), jax_fits(je, allocs[1], 0, 1, 64)])
     assert answers == [[True, True], [False, False], [False, False]]
 
 

@@ -827,6 +827,67 @@ def _count_anchor(reason: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The whole-group anchor's memory budget
+#
+# The whole-group anchor re-encodes a whole group and rebuilds its pools in
+# one program, and its transient comes on top of every resident group's
+# pools. The guard (dispatch._whole_group_anchor_fits) runs it only when
+# the transient that the warm pass measured (dispatch.
+# precompile_serving_programs) plus a margin fits in what the device can
+# still allocate; otherwise the anchor takes the chunked program.
+# ---------------------------------------------------------------------------
+
+#: free-memory safety margin for the whole-group anchor budget check
+_ANCHOR_HBM_MARGIN = 512 << 20
+
+
+def _device_free_bytes(device="cuda") -> Optional[int]:
+    """Bytes the caching allocator can still hand out on a CUDA device: the
+    free bytes cudaMemGetInfo reports plus the cached segments that hold no
+    live block (when cudaMalloc fails, the allocator releases those and
+    retries). Free blocks inside segments that still hold a live block are
+    left out, because a transient's large tensors may not fit them: the
+    figure is a lower bound, so the guard errs toward the chunked route.
+    None off CUDA, where there are no memory statistics and the guard takes
+    the one-group proxy, as the JAX package does on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda" or not torch.cuda.is_available():
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    s = torch.cuda.memory_stats(device)
+    idle_segments = (
+        s.get("reserved_bytes.all.current", 0)
+        - s.get("allocated_bytes.all.current", 0)
+        - s.get("inactive_split_bytes.all.current", 0)
+    )
+    return int(free + max(0, idle_segments))
+
+
+def _anchor_temp_key(xkv, G: int, p_max: int) -> tuple:
+    return (G, p_max, str(xkv.dtype), str(xkv.skv_dtype), xkv.skv_width)
+
+
+def _anchor_group_temp_bytes(engine, xkv, G: int, p_max: int) -> Optional[int]:
+    """The whole-group anchor's transient at this shape: the peak of device
+    memory over one run above what was allocated before it, as the warm
+    pass measured it on scratch pools (dispatch.
+    measure_anchor_group_temp_bytes; eager PyTorch has no ahead-of-time
+    memory analysis to ask, and measuring here, mid-serving, would read
+    other work's allocations). A prefix bucket narrower than every measured
+    one takes the nearest wider bucket's figure, an upper bound: on the
+    card the transient does not grow as the bucket shrinks (the smoke's
+    groups phase prints and checks every bucket's). None when it was never
+    measured (off CUDA, or the warm pass turned off): the guard then takes
+    the one-group proxy."""
+    cache = getattr(engine, "_anchor_temp_cache", {})
+    key = _anchor_temp_key(xkv, G, p_max)
+    if key in cache:
+        return cache[key]
+    wider = [k for k in cache if k[0] == G and k[2:] == key[2:] and k[1] > p_max]
+    return cache[min(wider, key=lambda k: k[1])] if wider else None
+
+
+# ---------------------------------------------------------------------------
 # Shared engine (host)
 # ---------------------------------------------------------------------------
 
@@ -964,6 +1025,8 @@ _LAZY_EXPORTS = {
     "_whole_group_anchor_fits": "dispatch",
     "_dispatch_group_xkv_inc": "dispatch",
     "_dispatch_group_xkv_anchor": "dispatch",
+    "measure_anchor_group_temp_bytes": "dispatch",
+    "precompile_serving_programs": "dispatch",
 }
 
 

@@ -5,18 +5,21 @@ Routes TickInputs batches to the tick programs in streaming/alignatt.py,
 partitioned by encode mode (legacy / anchor / inc / pooled xkv), with the
 dispatch/fetch split of the JAX layer: a dispatch enqueues the group's work
 on the device and returns a closure that fetches the packed outputs to the
-host, and the whole-group-anchor guard. The tick programs are looked up
-through the alignatt module at call time, so tests and the smoke can wrap
-them there. The JAX layer's
-``precompile_serving_programs`` has no counterpart: nothing compiles ahead
-in eager PyTorch.
+host, and the whole-group anchor's budget guard. The tick programs are
+looked up through the alignatt module at call time, so tests and the smoke
+can wrap them there. ``precompile_serving_programs`` is the JAX layer's
+ahead-of-time compile as a warm pass: nothing compiles ahead in eager
+PyTorch, so it runs each serving program once on scratch pools, which
+builds the kernels they launch and measures the whole-group anchor's
+transient for the guard.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,8 +27,8 @@ import torch
 from . import alignatt as _A
 from ..audio.mel import N_SAMPLES
 from .alignatt import SKV_REFRESH_ROWS, TICK_PHASE_STATS
-from .pools import AudioPool, EncPool, XKVAllocator, _dispatch_pooled_recovering
-from .session_plan import TickInputs, TickOutputs
+from .pools import AudioPool, EncPool, XKVAllocator, XKVGroupPool, _dispatch_pooled_recovering
+from .session_plan import TickInputs, TickOutputs, _skv_full_refresh_rows
 
 logger = logging.getLogger(__name__)
 
@@ -291,13 +294,24 @@ def _dispatch_group_inc(engine, ticks, tokenizer, pool, enc_pool):
     return lambda: _scatter_outputs(raw[0], n, engine.cfg.max_steps)
 
 
-def _whole_group_anchor_fits(xkv: XKVAllocator, gi: int) -> bool:
-    """Guard for the whole-group anchor: only while one group is resident,
-    and never again on a group where it failed. This is the JAX package's
-    fallback for an unknown transient; the JAX guard's budget branch needs
-    XLA's ahead-of-time memory analysis, which eager PyTorch lacks, and
-    the anchor's transient has not been measured on the card yet."""
-    return not xkv.groups[gi].whole_anchor_blocked and len(xkv.groups) == 1
+def _whole_group_anchor_fits(engine, xkv: XKVAllocator, gi: int, G: int, p_max: int) -> bool:
+    """Budget guard for the whole-group anchor: its measured transient
+    (_A._anchor_group_temp_bytes) plus a margin must fit in what the device
+    can still allocate (_A._device_free_bytes; the pools of every resident
+    group count against it). Without memory statistics (the CPU) or a
+    measured transient (the warm pass turned off), the JAX package's
+    fallback: only while one group is resident. A memoized failure blocks
+    the whole-group anchor on that group for good."""
+    g = xkv.groups[gi]
+    if g.whole_anchor_blocked:
+        return False
+    free = _A._device_free_bytes(engine.device)
+    if free is None:
+        return len(xkv.groups) == 1
+    temp = _A._anchor_group_temp_bytes(engine, xkv, G, p_max)
+    if temp is None:
+        return len(xkv.groups) == 1
+    return temp + _A._ANCHOR_HBM_MARGIN <= free
 
 
 def _to_slot_order(arr: dict, slot_of: List[int], G: int) -> dict:
@@ -401,15 +415,15 @@ def _dispatch_group_xkv_anchor(engine, ticks, tokenizer, pool, enc_pool, xkv, gi
     A majority of the group anchoring together (the epoch-synchronized
     eviction case) runs the whole-group program (layer-by-layer pool
     rebuild, no dense [L,G,H,Dh,T] transient) when _whole_group_anchor_fits
-    lets it; small subsets (session join, resets) run the slot-scatter program
-    in chunks of at most 8 lanes, so the dense per-chunk cross-KV transient
-    stays bounded. If a pooled program still fails, the pools are rebuilt
-    and the lanes served by the legacy program
-    (_dispatch_pooled_recovering)."""
+    finds that its transient fits beside every resident group's pools; small
+    subsets (session join, resets) run the slot-scatter program in chunks of
+    at most 8 lanes, so the dense per-chunk cross-KV transient stays
+    bounded. If a pooled program still fails, the pools are rebuilt and the
+    lanes served by the legacy program (_dispatch_pooled_recovering)."""
     g = xkv.groups[gi]
     G = g.group_width
     p_group = max(engine.bucket_for(len(t.prefix_ids)) for t in ticks)
-    if len(ticks) >= max(2, G // 2) and _whole_group_anchor_fits(xkv, gi):
+    if len(ticks) >= max(2, G // 2) and _whole_group_anchor_fits(engine, xkv, gi, G, p_group):
         slot_of = [t.xkv_slot for t in ticks]
         arr = _to_slot_order(_collect_lane_arrays(engine, ticks, tokenizer, G, p_group), slot_of, G)
         lanes = [0] * G  # absent slots gather a throwaway row (inactive)
@@ -479,3 +493,195 @@ def _dispatch_group_xkv_anchor(engine, ticks, tokenizer, pool, enc_pool, xkv, gi
             )
         )
     return lambda: [o for f in fetches for o in f()]
+
+
+# ---------------------------------------------------------------------------
+# The warm pass: the serving programs on scratch pools
+# ---------------------------------------------------------------------------
+
+
+class _ScratchGroup:
+    """One lane group's pools at an allocator's dtypes and widths, an
+    encoder pool and an audio pool of ``lanes`` rows (synthetic audio), on
+    the engine's device: the warm pass runs the serving programs on these,
+    never on a live group, because the programs update their pools in
+    place. Every lane is live, with a full window and a prefix that fills
+    its bucket (up to the serving cap, as a pooled session's does). Each
+    program method builds the program's inputs on the device and returns
+    the call, ready to run (and to run again)."""
+
+    def __init__(self, engine, xkv: XKVAllocator, G: int, lanes: int):
+        dev = engine.device
+        self.engine, self.G, self.lanes = engine, G, lanes
+        self.group = XKVGroupPool(
+            G, engine.dims, dtype=xkv.dtype, skv_width=xkv.skv_width,
+            align_count=xkv.align_count, skv_dtype=xkv.skv_dtype, device=dev,
+        )
+        self.enc_pool = EncPool(lanes + 1, engine.dims, dtype=engine.model.dtype, device=dev)
+        self.audio_pool = AudioPool(lanes, device=dev)
+        rng = np.random.default_rng(0)
+        noise = rng.integers(-4096, 4096, size=(lanes, N_SAMPLES), dtype=np.int16)
+        self.audio_pool.pool.copy_(torch.from_numpy(noise))
+
+    def _lanes(self, B: int, width: int, plen: int) -> dict:
+        """Host inputs of B live lanes, each with a ``plen``-token prefix
+        (the sot sequence, then text) in a ``width``-wide buffer."""
+        eng = self.engine
+        tok = eng.tokenizer
+        sot = list(tok.sot_sequence)
+        prefix = np.full((B, width), tok.eot, np.int32)
+        prefix[:, :plen] = tok.encode(" ")[0]
+        prefix[:, : len(sot)] = sot
+        return dict(
+            prefix=prefix,
+            prefix_len=np.full(B, plen, np.int32),
+            sot_index=np.full(B, sot.index(tok.sot), np.int32),
+            content_frames=np.full(B, eng.dims.n_audio_ctx, np.int32),
+            last_attend=np.zeros(B, np.int32),
+            is_last=np.zeros(B, bool),
+            max_new=np.full(B, eng.cfg.max_steps, np.int32),
+            active=np.ones(B, bool),
+        )
+
+    def _anchor_args(self, B: int, p_max: int):
+        """(audio, encoder rows, core args, statics) of a B-lane anchor at
+        bucket ``p_max``, each prefix as long as a pooled session's can be
+        in that bucket (the serving cap bounds it)."""
+        eng = self.engine
+        arr = self._lanes(B, p_max, min(p_max, eng.serving_prefix_cap or p_max))
+        audio = self.audio_pool.gather([i % self.lanes for i in range(B)])
+        enc_lanes = _to_device(eng, 1 + np.arange(B) % self.lanes)
+        return (audio, enc_lanes, *_core_device_args(eng, arr, eng.tokenizer, p_max))
+
+    def anchor_group(self, p_max: int):
+        g = self.group
+        audio, enc_lanes, args, statics = self._anchor_args(self.G, p_max)
+        return functools.partial(
+            _A.alignatt_tick_anchor_group,
+            self.engine.model, audio, g.k, g.v, self.enc_pool.pool,
+            g.skv_k, g.skv_v, g.asum, g.asq, g.alast, g.acount, g.tok,
+            enc_lanes, *args, **statics,
+        )
+
+    def anchor_pooled(self, B: int, p_max: int):
+        g = self.group
+        audio, enc_lanes, args, statics = self._anchor_args(B, p_max)
+        slots = np.minimum(np.arange(B), self.G)  # lanes past the group write nowhere
+        return functools.partial(
+            _A.alignatt_tick_anchor_pooled,
+            self.engine.model, audio, g.k, g.v, self.enc_pool.pool,
+            g.skv_k, g.skv_v, g.asum, g.asq, g.alast, g.acount, g.tok,
+            enc_lanes, _to_device(self.engine, slots), *args, **statics,
+        )
+
+    def inc_skv(self, R: int):
+        """The group inc tick at refresh width R, every lane with the
+        longest prefix the self-KV pool holds (the serving cap plus the
+        commit budget) and its last R-1 rows refreshed."""
+        g, eng = self.group, self.engine
+        cfg, tok = eng.cfg, eng.tokenizer
+        G, Wc, T = self.G, g.skv_width, eng.dims.n_audio_ctx
+        plen = Wc - cfg.max_steps - 2
+        arr = self._lanes(G, plen, plen)
+        r_tok = np.full((G, R), tok.encode(" ")[0], np.int64)
+        r_pos = np.full((G, R), Wc - 1, np.int64)  # scratch rows between
+        r_tok[:, 0], r_pos[:, 0] = tok.sot, 0
+        k = min(R - 1, plen - 1)
+        r_pos[:, R - k :] = np.arange(plen - k, plen)
+        dev = lambda a: _to_device(eng, a)  # noqa: E731
+        win = np.full(G, T, np.int64)
+        return functools.partial(
+            _A.alignatt_tick_inc_skv,
+            eng.model, self.audio_pool.pool, g.k, g.v, self.enc_pool.pool,
+            g.skv_k, g.skv_v, g.asum, g.asq, g.alast, g.acount, g.tok,
+            dev(np.arange(G) % self.lanes), dev(1 + np.arange(G) % self.lanes),
+            dev(win - cfg.enc_tail_frames), dev(win), dev(win - cfg.enc_rewrite_margin),
+            dev(r_tok), dev(r_pos),
+            dev(arr["prefix_len"]), dev(arr["content_frames"]), dev(arr["last_attend"]),
+            dev(arr["is_last"]), dev(arr["max_new"]),
+            eng.suppress_mask, eng.align_layers, eng.align_heads,
+            int(cfg.frame_threshold), int(cfg.rewind_threshold),
+            float(cfg.nonspeech_prob), dev(arr["active"]), eng.cif_w, eng.cif_b,
+            dims=eng.dims, max_steps=cfg.max_steps, eot=tok.eot,
+            ts_begin=tok.timestamp_begin, no_speech_tok=tok.no_speech,
+            space_tok=tok.encode(" ")[0],
+            xkv_f8=cfg.xkv_f8, xkv_transposed=getattr(cfg, "xkv_transposed", True),
+            tail_frames=cfg.enc_tail_frames,
+        )
+
+
+def _measured(device, call) -> Tuple[float, Optional[int]]:
+    """Run a program ``call`` once, to a synchronize: (seconds, the peak of
+    device memory over the run above what was allocated before it, the
+    call's inputs included; None off CUDA, which has no memory statistics).
+    The peak counters are the device's, not the caller's: measure only
+    while nothing else allocates."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        before = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    call()
+    if on_card:
+        torch.cuda.synchronize(device)
+    secs = time.perf_counter() - t0
+    return secs, (torch.cuda.max_memory_allocated(device) - before) if on_card else None
+
+
+def measure_anchor_group_temp_bytes(engine, xkv: XKVAllocator, G: int, p_max: int,
+                                    scratch: Optional[_ScratchGroup] = None) -> Optional[int]:
+    """Run the whole-group anchor once on scratch pools at (G, p_max) and
+    the allocator's dtypes, and cache its transient on the engine for
+    _A._anchor_group_temp_bytes: the peak over the run above what was
+    allocated before it, the scratch pools and the program's inputs
+    included in "before", as a real call's are. Returns the bytes, or None
+    off CUDA (the program still runs)."""
+    scratch = scratch or _ScratchGroup(engine, xkv, G, G)
+    _, temp = _measured(engine.device, scratch.anchor_group(p_max))
+    if temp is not None:
+        if not hasattr(engine, "_anchor_temp_cache"):
+            engine._anchor_temp_cache = {}
+        engine._anchor_temp_cache[_A._anchor_temp_key(xkv, G, p_max)] = temp
+    return temp
+
+
+def precompile_serving_programs(engine, xkv: XKVAllocator, enc_capacity: int,
+                                audio_capacity: int) -> dict:
+    """Warm and measure the steady-serving program set, the JAX layer's
+    ahead-of-time compile: each program runs once on scratch pools
+    (_ScratchGroup) at the group's width, which builds the kernels it
+    launches before the first session's tick and measures its transient:
+
+    - the group inc tick (_A.alignatt_tick_inc_skv) at both refresh widths,
+    - the chunked anchor (_A.alignatt_tick_anchor_pooled) at B 4 and 8 at
+      the cap's bucket (the one shape capped engines route every chunk to),
+    - the whole-group anchor at that bucket (measure_anchor_group_temp_bytes),
+      whose transient the budget guard reads.
+
+    The capacities bound the scratch pools' rows: a program's transient
+    depends on the lanes it touches, not on its pools' rows. Run it before
+    the scheduler admits ticks (the transients are read from the device's
+    peak counters); a failure raises. Returns {program: seconds}, and keeps
+    each program's transient bytes on the engine
+    (``_serving_transient_bytes``)."""
+    G = xkv.group_width
+    scratch = _ScratchGroup(engine, xkv, G, max(1, min(G, enc_capacity - 1, audio_capacity)))
+    p_max = engine.bucket_for(engine.serving_prefix_cap or engine.prefix_buckets[-1])
+    runs = {}
+    for key, R in (
+        ("inc_skv", SKV_REFRESH_ROWS),
+        ("inc_skv_full", _skv_full_refresh_rows(engine, xkv.skv_width)),
+    ):
+        runs[key] = _measured(engine.device, scratch.inc_skv(R))
+    for B in (4, 8):  # both chunked-anchor widths (CHUNK_SMALL and CHUNK)
+        runs[f"anchor_pooled_b{B}"] = _measured(engine.device, scratch.anchor_pooled(B, p_max))
+    t0 = time.perf_counter()
+    temp = measure_anchor_group_temp_bytes(engine, xkv, G, p_max, scratch)
+    runs["anchor_group"] = (time.perf_counter() - t0, temp)
+    times = {k: round(s, 3) for k, (s, _) in runs.items()}
+    engine._serving_transient_bytes = {k: b for k, (_, b) in runs.items()}
+    logger.info("serving programs warmed at G=%d, p_max=%d: seconds %s, transient bytes %s",
+                G, p_max, times, engine._serving_transient_bytes)
+    return times
