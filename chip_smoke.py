@@ -240,10 +240,36 @@ Phases (each prints lines; any failure raises and exits non-zero):
              tokens per lane tick and the ticks' stop reasons (end of text
              among them). Then K1 in bf16 against its plain version at every
              (S, T) that run launched.
-16. kernels — the large form's kernels at the shapes its engines give them:
+16. capacity — the capacity sweep (harness/capacity.py, the twin of the
+             repository's bench.py): one arm at large-v3-turbo widths with
+             the encoder cut to 4 layers, f32, 2 lanes, on the card against
+             the CPU (the whole-group anchor, then the pooled inc tick:
+             packed integers equal, no_speech_p and every pool within
+             1e-4); then ``bench_model`` at full width for the base form's
+             arm at 96 lanes and large-v3 at 24 lanes with bf16, f8 and f8d
+             pools. Prints each arm's inc, anchor and amortized wall ms, its
+             own peak allocation (its weights included, nothing the phase
+             or an earlier one holds besides) and the streams. Checks that every arm ran, that K1 launched on tensor
+             cores and K2 in the large-v3 arms, two thirds of its launches
+             (the f8 and f8d arms') on the f8 route; then K1 in bf16 against
+             its plain version at every (S, T) the base arm launched, at 96
+             lanes.
+17. e2e    — the end-to-end serving benchmark (harness/e2e_serving.py, the
+             twin of scripts/bench_e2e_serving.py) through its ``run``:
+             ``random:large-v3`` with f8 pools, 16 sessions (5 s poured, 10
+             s untimed, 20 s measured, after its 2-session priming run), the
+             VAD on with the Silero stand-in of the vad phase. Prints the
+             summary (word emission p50 / p95, keep-up, sustained streams,
+             the VAD that served, the card) and the scheduler's counters.
+             Checks that no session was rejected or went without output,
+             that no tick failed and no group recovered in any of the
+             benchmark's windows, that the stand-in served, and that K1 and
+             K2 (on the f8 route) launched.
+18. kernels — the large form's kernels at the shapes its engines give them:
              K1 at the encoder's two shapes, every prefix bucket over the
              dense cross-KV and over the pool, and both refresh widths, and
-             at every (S, T) the large, f8 and load runs launched; K2
+             at every (S, T) the large, f8, load, groups, capacity and e2e
+             runs launched; K2
              against its plain version exactly, bf16, f32 and float8_e4m3fn
              pools (f8 from bf16 tails, and from f32 tails at the group's
              width; the tails then hold overflow, non-finite, boundary and
@@ -685,9 +711,10 @@ def _check_k2(shape, win_list, dtype, tail_dtype=None) -> dict:
 def phase_kernels_large(geoms: dict, launched: dict) -> dict:
     """The large form's kernels at the shapes its engines give them, for
     each run's geometry (``geoms``: model -> geometry; see k1_large_cases;
-    K2 at each run's pool depth and group width, and at 24 lanes). Fails if
-    a run launched K1 at an (S, T) not checked here. Returns per-case
-    records."""
+    K2 at each run's pool depth and group width, and at 24 lanes). K1 is
+    checked in bf16 and f32, or in the dtypes a geometry's ``k1_dtypes``
+    names. Fails if a run launched K1 at an (S, T) not checked here.
+    Returns per-case records, K1's keyed by (S, T, dtype, lanes)."""
     records = {}
     checked = set()
     for model, geom in geoms.items():
@@ -696,9 +723,9 @@ def phase_kernels_large(geoms: dict, launched: dict) -> dict:
             if (S, T, tv, vt, G) in checked:
                 continue
             checked.add((S, T, tv, vt, G))
-            for dtype in (torch.bfloat16, torch.float32):
+            for dtype in geom.get("k1_dtypes", (torch.bfloat16, torch.float32)):
                 rec = _check_k1(label, model, S, T, tv, vt, dtype, G, LH)
-                records[("flash_encoder_attn", S, T, str(dtype).replace("torch.", ""))] = rec
+                records[("flash_encoder_attn", S, T, str(dtype).replace("torch.", ""), G)] = rec
         for width in (G, len(K2_WIN)):
             # pool dtype, tail dtype: bf16 and f32 pools; f8 pools from the
             # serving (bf16) tails, and from f32 tails at the group's width
@@ -926,7 +953,7 @@ def speech_pcm(seconds: float, seed: int) -> np.ndarray:
 
 
 N_SESSIONS = 4       # AudioProcessor sessions in process, plus one over WS /asr
-SESSION_SECONDS = 12.0
+SESSION_SECONDS = 8.0
 CHUNK_S = 0.5
 # audio fed in real time, as a live stream gives it: a tick sees well under
 # a second of new audio. At 10x each tick saw ~3 s, so a session decoded in
@@ -1675,7 +1702,7 @@ def phase_f8(large: dict) -> dict:
 
 BEAMS = 4               # the beam phase's --beams
 BEAM_SESSIONS = 4       # AudioProcessor sessions in process, plus one over WS /asr
-BEAM_SECONDS = 12.0
+BEAM_SECONDS = 8.0
 
 
 def phase_reference_beam() -> None:
@@ -2530,7 +2557,7 @@ def phase_groups() -> dict:
 
 
 LA_SESSIONS = 4      # AudioProcessor sessions in process, plus one over WS /asr
-LA_SECONDS = 12.0
+LA_SECONDS = 8.0
 # the serving engines' transcribe_kargs. Random weights score far under the
 # -1 log-probability threshold, so the default ladder decodes every window
 # six times (temperatures 0 to 1), and they rarely sample end-of-text, so
@@ -3415,11 +3442,11 @@ def phase_diar_tr(main_run: dict) -> dict:
     return run
 
 
-def phase_kernels_base(phase: str, launched: dict) -> dict:
-    """K1 in bf16 at every (S, T) a base-form phase (diar_tr, vad) launched
-    it, at the base form's batch: the encoder's full window and tail, and
-    each prefill bucket over the pool. Fails on a launched (S, T) it did not
-    check."""
+def phase_kernels_base(phase: str, launched: dict, b: int = B) -> dict:
+    """K1 in bf16 at every (S, T) a base-form phase (diar_tr, vad, the
+    capacity sweep's base arm) launched it, at the phase's batch ``b``: the
+    encoder's full window and tail, and each prefill bucket over the pool.
+    Fails on a launched (S, T) it did not check."""
     records = {}
     for S, T in sorted(launched):
         if (S, T) == (1500, 1500):
@@ -3430,7 +3457,7 @@ def phase_kernels_base(phase: str, launched: dict) -> dict:
             label, vt = f"{phase} prefill cross-attention, bucket {S}", True
         else:
             raise AssertionError(f"the {phase} run launched K1 at an unchecked shape {(S, T)}")
-        records[(S, T)] = _check_k1(label, "base", S, T, T, vt, torch.bfloat16, B, H)
+        records[(S, T)] = _check_k1(label, "base", S, T, T, vt, torch.bfloat16, b, H)
     return records
 
 
@@ -3775,7 +3802,7 @@ def phase_vad(main_run: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 CAUSAL_SESSIONS = 4      # AudioProcessor sessions in process, plus one over WS /asr
-CAUSAL_SECONDS = 12.0
+CAUSAL_SECONDS = 8.0
 CAUSAL_REF_LAYERS = 4    # tower and text depth of the f32 card-vs-CPU reference (full widths)
 CAUSAL_REF_STEPS = 16    # hypothesis steps in the reference
 # f32 logits after 4+4 layers at full width, card against CPU: the sound
@@ -4160,7 +4187,7 @@ def phase_causal() -> dict:
 # ---------------------------------------------------------------------------
 
 VOX_SESSIONS = 2         # AudioProcessor sessions in process (offline: plus one REST post)
-VOX_SECONDS = 12.0
+VOX_SECONDS = 8.0
 VOX_LAYERS = 4           # audio and text depth of the served checkpoint (published widths)
 VOX_REF_LAYERS = 2       # depth of the f32 card-vs-CPU reference
 VOX_REF_STEPS = 16
@@ -4387,7 +4414,7 @@ TRAIN_DATASET_BATCHES = 2
 TRAIN_TOK_LEN = 48
 TRAIN_LR = 1e-3          # the trainer's default
 TRAIN_SESSIONS = 2       # AudioProcessor sessions on the trained checkpoint
-TRAIN_SECONDS = 12.0
+TRAIN_SECONDS = 8.0
 
 
 def _excess(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -4648,6 +4675,220 @@ def phase_kernels_train(launched: dict) -> dict:
     return records
 
 
+# ---------------------------------------------------------------------------
+# capacity and e2e: the port's two measuring programs on the card
+# ---------------------------------------------------------------------------
+
+# (model, widths, tail frames, pool dtypes): harness/capacity.py's base arm
+# and the headline model at its narrowest width in every pool dtype
+CAPACITY_ARMS = (("base", (96,), 384, ("enc",)), ("large-v3", (24,), 160, ("bf16", "f8", "f8d")))
+CAPACITY_REF_MODEL = "large-v3-turbo"  # the reference arm's widths (1280 wide, 128 mels)
+CAPACITY_REF_LAYERS = 4  # its encoder depth (turbo's decoder has 4 layers)
+CAPACITY_REF_LANES = 2
+CAPACITY_REF_TOL = 1e-4  # card against CPU in f32: no_speech_p, and the pools' max |difference| over max(1, max |value|)
+E2E_SESSIONS = 16        # harness/e2e_serving.py --n
+E2E_SECONDS = 20.0       # --duration
+E2E_WARM = 5.0           # --warm
+E2E_SHAKEOUT = 10.0      # --shakeout
+
+
+def phase_reference_capacity() -> None:
+    """One capacity arm (harness/capacity.py's ``Arm``: its inputs and
+    pools drawn as the sweep draws them) at large-v3-turbo widths with the
+    encoder cut to CAPACITY_REF_LAYERS layers, f32 weights and pools,
+    CAPACITY_REF_LANES lanes, on the card and on the CPU: the whole-group
+    anchor, then the pooled inc tick on the pools it left. The packed
+    integers must be equal, no_speech_p and every pool within
+    CAPACITY_REF_TOL (the pools relative to their largest value)."""
+    from dataclasses import replace
+
+    from whisperlivekit_tpu_torch.harness import capacity as C
+    from whisperlivekit_tpu_torch.models.whisper import model as wm
+    from whisperlivekit_tpu_torch.models.whisper.dims import MODEL_DIMS
+
+    dims = replace(MODEL_DIMS[CAPACITY_REF_MODEL], n_audio_layer=CAPACITY_REF_LAYERS)
+    tail = next(t for name, _, t, _, _ in C.SWEEP if name == CAPACITY_REF_MODEL)
+    outs, arms = {}, {}
+    before = (flash_encoder_attn.launches, xkv_splice.launches)
+    for side, dev in (("card", CARD), ("cpu", "cpu")):
+        model = wm.init_params(dims, torch.Generator().manual_seed(7), torch.float32, dev)
+        arm = C.Arm(model, dims, CAPACITY_REF_LANES, "bf16", np.random.default_rng(0), C._suppress(dims, dev),
+                    *C._align(dims, CAPACITY_REF_MODEL, dev), tail, dev,
+                    pool_dt=torch.float32, state_dt=torch.float32)
+        with torch.inference_mode():
+            outs[side] = [arm.anchor_tick()[0].cpu(), arm.inc_tick()[0].cpu()]
+        arms[side] = arm
+        if side == "card":
+            launched = (flash_encoder_attn.launches - before[0], xkv_splice.launches - before[1])
+    ok = True
+    for tick, (g, c) in enumerate(zip(outs["card"], outs["cpu"])):
+        ints = torch.equal(g[:, :-1], c[:, :-1])
+        ns_err = (g[:, -1].view(torch.float32) - c[:, -1].view(torch.float32)).abs().max().item()
+        log("reference", model=f"capacity arm, {CAPACITY_REF_MODEL} widths, {CAPACITY_REF_LAYERS}+"
+            f"{dims.n_text_layer} layers, f32 random", lanes=CAPACITY_REF_LANES,
+            tick=("anchor_group", "inc_skv")[tick], ints_equal=ints, no_speech_err=ns_err,
+            kept=g[:, 2 * C.DECODE_STEPS].tolist())
+        ok = ok and ints and ns_err <= CAPACITY_REF_TOL
+    pool_err = {}
+    for key in C.Arm.POOLS:
+        got, want = arms["card"].state[key].cpu().double(), arms["cpu"].state[key].double()
+        pool_err[key] = (got - want).abs().max().item() / max(1.0, want.abs().max().item())
+    log("reference", model="capacity arm", pool_max_abs_err=pool_err, kernel_launches=dict(
+        flash_encoder_attn=launched[0], xkv_splice=launched[1]))
+    if not ok or max(pool_err.values()) > CAPACITY_REF_TOL or not all(launched):
+        raise AssertionError(f"the card's capacity arm disagrees with the CPU (pools {pool_err}) or a kernel "
+                             f"did not launch ({launched})")
+
+
+def phase_capacity() -> dict:
+    """harness/capacity.py's ``bench_model`` on the card at full width:
+    the card-against-CPU arm first (phase_reference_capacity), then the base
+    form's arm at 96 lanes and large-v3 at 24 lanes with bf16, f8 and f8d
+    pools. Every arm must run (no skip, no out-of-memory), K1 must launch in
+    both models' runs on tensor cores, and K2 in large-v3's, two thirds of
+    its launches (the f8 and f8d arms') on the f8 route. Each model's run
+    counts its kernels from 0."""
+    import gc
+
+    from whisperlivekit_tpu_torch.harness import capacity as C
+    from whisperlivekit_tpu_torch.models.whisper.dims import MODEL_DIMS
+    from whisperlivekit_tpu_torch.streaming import alignatt as A
+
+    phase_reference_capacity()
+    gc.collect()
+    torch.cuda.empty_cache()
+    results, counts = {}, {}
+    for name, widths, tail, dtypes in CAPACITY_ARMS:
+        t = time.perf_counter()
+        _reset_kernel_counts()
+        C.bench_model(name, widths, results, tail_frames=tail, dtypes=dtypes, device=CARD)
+        torch.cuda.synchronize()
+        counts[name] = _kernel_counts()
+        log("capacity", model=name, s=round(time.perf_counter() - t, 1))
+        for B in widths:
+            for dt in dtypes:
+                rec = results[f"{name}_B{B}_{dt}"]
+                if not isinstance(rec, dict):
+                    raise AssertionError(f"capacity arm {name} B={B} {dt}: {rec}")
+                log("capacity", arm=f"{name}_B{B}_{dt}", **rec)
+        log("capacity", model=name, peak_streams=results[f"{name}_peak_streams"],
+            peak_streams_unconstrained=results[f"{name}_peak_streams_unconstrained"],
+            peak_tick_ms=results[f"{name}_peak_tick_ms"])
+        c = counts[name]
+        log("capacity", model=name, kernel="flash_encoder_attn", launches=c["flash_encoder_attn"],
+            launches_by_SxT={f"{s}x{t}": n for (s, t), n in sorted(c["k1_shapes"].items())})
+        log("capacity", model=name, kernel="xkv_splice", launches=c["xkv_splice"], f8_route=c["xkv_splice_f8"])
+        _check_k1_bodies("capacity", c)
+        gc.collect()
+        torch.cuda.empty_cache()
+    base, large = (counts[arm[0]] for arm in CAPACITY_ARMS)
+    if not (base["flash_encoder_attn"] and large["flash_encoder_attn"] and large["xkv_splice"]):
+        raise AssertionError(f"a kernel never launched in the capacity phase: {counts}")
+    if large["xkv_splice_f8"] != 2 * (large["xkv_splice"] - large["xkv_splice_f8"]):
+        raise AssertionError(f"K2's f8 route took {large['xkv_splice_f8']} of {large['xkv_splice']} launches, "
+                             "not the f8 and f8d arms'")
+    # the pooled arms' K1 call sites: the encoder's window and tail, the
+    # anchor's prefill at the cap's bucket and the inc tick's refresh rows
+    dims = MODEL_DIMS[CAPACITY_ARMS[1][0]]
+    geom = dict(n_audio_ctx=dims.n_audio_ctx, n_text_layer=dims.n_text_layer,
+                pool_t=-(-dims.n_audio_ctx // 128) * 128, tail_frames=CAPACITY_ARMS[1][2],
+                prefix_buckets=(C.SERVING_PREFIX_CAP,), group_width=max(CAPACITY_ARMS[1][1]),
+                refresh_rows=(A.SKV_REFRESH_ROWS,), k1_dtypes=(torch.bfloat16,))
+    total = {k: base[k] + large[k] for k in ("flash_encoder_attn", "xkv_splice", "xkv_splice_f8")}
+    return dict(results=results, base=base, large=large, total=total, geom=geom)
+
+
+def phase_e2e() -> dict:
+    """harness/e2e_serving.py's ``run`` on the card: ``random:large-v3``
+    with f8 pools (its defaults), E2E_SESSIONS sessions, E2E_WARM s poured,
+    E2E_SHAKEOUT s untimed and E2E_SECONDS s measured, the VAD on with the
+    seeded Silero stand-in (written under VAD_STANDIN_DIR, as the vad phase
+    does) in WLK_TPU_ASSET_DIR. The run (its priming run included) counts
+    its kernels from 0. Fails on a rejected session or one without output,
+    a failed tick or a pool recovery (counted across the benchmark's
+    resets of the scheduler's counters), on another VAD serving, or when
+    K1 or K2 did not launch or K2 left the f8 route."""
+    import gc
+    import os
+
+    from whisperlivekit_tpu_torch.engine.core import TranscriptionEngine
+    from whisperlivekit_tpu_torch.engine.scheduler import BatchScheduler
+    from whisperlivekit_tpu_torch.harness import e2e_serving as E
+    from whisperlivekit_tpu_torch.harness import harness as TH
+    from whisperlivekit_tpu_torch.harness import vad_checkpoint as VC
+    from whisperlivekit_tpu_torch.harness.vocab import install_standin_vocab
+    from whisperlivekit_tpu_torch.streaming import alignatt as A
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    path = VC.write_silero_standin(VAD_STANDIN_DIR, VAD_SEED, calibrate=VC.calibration_audio(VAD_SEED + 1))
+    was = os.environ.get("WLK_TPU_ASSET_DIR")
+    install_standin_vocab(path.parent)
+    failed, recovered = [], []
+    real_reset = BatchScheduler.reset_stats
+
+    def counted_reset(sched):
+        failed.append(sched.n_failed_ticks)
+        recovered.append(A.TICK_PHASE_STATS.get("pool_recovery", (0,))[0])
+        real_reset(sched)
+
+    argv = ["--n", str(E2E_SESSIONS), "--duration", str(E2E_SECONDS), "--warm", str(E2E_WARM),
+            "--shakeout", str(E2E_SHAKEOUT)]
+    BatchScheduler.reset_stats = counted_reset
+    TH.reset_engine_cache()
+    try:
+        t = time.perf_counter()
+        _reset_kernel_counts()
+        summary = E.run(argv)
+        torch.cuda.synchronize()
+        counts = _kernel_counts()
+        wall = time.perf_counter() - t
+        (engine,) = TH._engine_cache.values()
+        sched = engine.scheduler
+        failed.append(sched.n_failed_ticks)
+        recovered.append(A.TICK_PHASE_STATS.get("pool_recovery", (0,))[0])
+        geom = dict(_large_geom(engine), k1_dtypes=(torch.bfloat16,))  # the path's dtype
+    finally:
+        BatchScheduler.reset_stats = real_reset
+        TH.reset_engine_cache()
+        TranscriptionEngine.reset()
+        if was is None:
+            os.environ.pop("WLK_TPU_ASSET_DIR", None)
+        else:
+            os.environ["WLK_TPU_ASSET_DIR"] = was
+    gc.collect()
+    torch.cuda.empty_cache()
+    (run,) = summary["runs"]
+    st = run["scheduler"]
+    log("e2e", model=summary["model"], xkv_dtype=summary["xkv_dtype"], vad=summary["vad"],
+        device=repr(summary["device"]), sessions=run["n_sessions"], admitted=run["n_admitted"],
+        duration_s=E2E_SECONDS, warm_s=E2E_WARM, shakeout_s=E2E_SHAKEOUT, wall_s=round(wall, 1))
+    log("e2e", word_emission_p50_ms=run["word_emission_p50_ms"], word_emission_p95_ms=run["word_emission_p95_ms"],
+        keep_up=run["keep_up"], lag_mid_p50_ms=run["emission_lag_mid_p50_ms"],
+        lag_late_p50_ms=run["emission_lag_late_p50_ms"], frontier_advances=run["n_frontier_advances"],
+        without_output=run["n_sessions_without_output"], mean_infer_ms=run["mean_infer_ms"],
+        max_sustained_streams=summary["max_sustained_streams"],
+        max_sustained_streams_at_500ms_p50=summary["max_sustained_streams_at_500ms_p50"])
+    log("e2e", ticks=st["n_ticks"], avg_lanes=st["avg_lanes_per_tick"], tick_ms_p50=st["tick_ms_p50"],
+        tick_ms_p95=st["tick_ms_p95"], queue_wait_p50_ms=st["queue_wait_p50_ms"],
+        sched_word_emission_p50_ms=st["word_emission_p50_ms"], failed_ticks_by_window=failed,
+        pool_recoveries_by_window=recovered, tick_phases=st["tick_phases"], xkv=st.get("xkv"))
+    log("e2e", kernel="flash_encoder_attn", launches=counts["flash_encoder_attn"],
+        launches_by_SxT={f"{s}x{t}": n for (s, t), n in sorted(counts["k1_shapes"].items())})
+    log("e2e", kernel="xkv_splice", launches=counts["xkv_splice"], f8_route=counts["xkv_splice_f8"])
+    _check_k1_bodies("e2e", counts)
+    if run["n_rejected"] or run["n_sessions_without_output"]:
+        raise AssertionError(f"e2e: {run['n_rejected']} sessions rejected, {run['n_sessions_without_output']} "
+                             "without output")
+    if any(failed) or any(recovered):
+        raise AssertionError(f"e2e: failed ticks {failed}, pool recoveries {recovered}")
+    if summary["vad"] != "SileroJITVAD":
+        raise AssertionError(f"e2e: the {summary['vad']} VAD served, not the Silero stand-in")
+    if not (counts["flash_encoder_attn"] and counts["xkv_splice"]) or counts["xkv_splice_f8"] != counts["xkv_splice"]:
+        raise AssertionError(f"e2e: a kernel never launched, or K2 left the f8 route: {counts}")
+    return dict(summary=summary, counts=counts, geom=geom)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--k3-ab", metavar="LOG_MEL_CU", default=None,
@@ -4689,11 +4930,18 @@ def main(argv=None) -> int:
     vox_records = timed("kernels_voxtral", phase_kernels_voxtral, vox["counts"]["k1_shapes"])
     train = timed("train", phase_train)
     train_records = timed("kernels_train", phase_kernels_train, train["counts"]["k1_shapes"])
+    capacity = timed("capacity", phase_capacity)
+    cap_records = timed("kernels_capacity", phase_kernels_base, "capacity",
+                        capacity["base"]["k1_shapes"], CAPACITY_ARMS[0][1][0])
+    e2e = timed("e2e", phase_e2e)
     large_records = timed("kernels_large", phase_kernels_large,
                           {"large-v3": large["geom"], "large-v3 f8": f8["geom"], LOAD_MODEL: load["geom"],
-                           f"{GROUP_MODEL} groups": groups["geom"]},
+                           f"{GROUP_MODEL} groups": groups["geom"], "large-v3 capacity": capacity["geom"],
+                           "large-v3 e2e": e2e["geom"]},
                           Counter(large["counts"]["k1_shapes"]) + Counter(f8["counts"]["k1_shapes"])
-                          + Counter(load["counts"]["k1_shapes"]) + Counter(groups["counts"]["k1_shapes"]))
+                          + Counter(load["counts"]["k1_shapes"]) + Counter(groups["counts"]["k1_shapes"])
+                          + Counter(capacity["large"]["k1_shapes"])
+                          + Counter(e2e["counts"]["k1_shapes"]))
     k3_launched = (Counter(front["counts"]["k3_shapes"]) + Counter(large["counts"]["k3_shapes"])
                    + Counter(f8["counts"]["k3_shapes"]) + Counter(load["counts"]["k3_shapes"]))
     k3_records = timed("kernels_k3", phase_kernels_k3, k3_launched)
@@ -4719,8 +4967,9 @@ def main(argv=None) -> int:
     k1_errs += [r["max_abs_err"] for r in vad_records.values()]
     k1_errs += [r["max_abs_err"] for r in vox_records.values()]
     k1_errs += [r["max_abs_err"] for r in train_records.values()]
-    k1 = large_records[("flash_encoder_attn", 1500, 1500, "bfloat16")]
+    k1_errs += [r["max_abs_err"] for r in cap_records.values()]
     G = large["geom"]["group_width"]
+    k1 = large_records[("flash_encoder_attn", 1500, 1500, "bfloat16", G)]
     L = large["geom"]["n_text_layer"]
     k2 = large_records[("xkv_splice", L, G, "bfloat16", "bfloat16")]
     k2_f8 = large_records[("xkv_splice", L, G, "float8_e4m3fn", "bfloat16")]
@@ -4737,9 +4986,12 @@ def main(argv=None) -> int:
                                        "diar_tr": dt["counts"]["flash_encoder_attn"],
                                        "vad": vad["counts"]["flash_encoder_attn"],
                                        "voxtral": vox["counts"]["flash_encoder_attn"],
-                                       "train": train["counts"]["flash_encoder_attn"]},
+                                       "train": train["counts"]["flash_encoder_attn"],
+                                       "capacity": capacity["total"]["flash_encoder_attn"],
+                                       "e2e": e2e["counts"]["flash_encoder_attn"]},
                 "xkv_splice": {"large": large["counts"]["xkv_splice"], "f8": f8["counts"]["xkv_splice"],
-                               "load": load["counts"]["xkv_splice"], "groups": groups["counts"]["xkv_splice"]},
+                               "load": load["counts"]["xkv_splice"], "groups": groups["counts"]["xkv_splice"],
+                               "capacity": capacity["total"]["xkv_splice"], "e2e": e2e["counts"]["xkv_splice"]},
                 "log_mel_pallas": {"front": front["counts"]["log_mel_pallas"],
                                    "large": large["counts"]["log_mel_pallas"],
                                    "f8": f8["counts"]["log_mel_pallas"],
@@ -4748,7 +5000,8 @@ def main(argv=None) -> int:
     extra = {"xkv_splice": {"f8": dict(
         {f: k2_f8[f] for f in fields + ("device_ms",)}, timed_shape=f"{L}x{G}x{LH}x{DH}"
         f"x{large['geom']['pool_t']} float8_e4m3fn pool, bfloat16 tails",
-        launches_by_path={"f8": f8["counts"]["xkv_splice_f8"]})}}
+        launches_by_path={"f8": f8["counts"]["xkv_splice_f8"], "capacity": capacity["total"]["xkv_splice_f8"],
+                          "e2e": e2e["counts"]["xkv_splice_f8"]})}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0][0], "replaces": KERNELS[name][1],
          "launches": sum(launches[name].values()), "launches_by_path": launches[name],
