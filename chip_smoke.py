@@ -264,12 +264,66 @@ Phases (each prints lines; any failure raises and exits non-zero):
              Checks that no session was rejected or went without output,
              that no tick failed and no group recovered in any of the
              benchmark's windows, that the stand-in served, and that K1 and
-             K2 (on the f8 route) launched.
-18. kernels — the large form's kernels at the shapes its engines give them:
+             K2 (on the f8 route) launched. The summary is kept (its --out)
+             for the table phase.
+18. ab     — the inc-vs-exact A/B (harness/ab_inc_exact.py, the twin of
+             scripts/ab_inc_exact.py): ``run_model`` and ``run_decoder_ab``
+             at base widths with 2+2 layers in f32, the same seeded weights
+             on the card and on the CPU, 12 ticks, the cross-KV pools off
+             and forced on (every integer field equal: tick mix, gate
+             frames, committed tokens and their agreement; the float fields
+             within 1e-4); then at full width ``run_model("large-v3", 0.75,
+             ...)`` (45 ticks of speech-like audio, bf16 pools: the eviction
+             re-anchor runs), ``run_decoder_ab("large-v3", ..., "f8")`` over
+             22 ticks (bf16 against f8 decoder linears, f8 pools) and
+             ``run_model("base", 1.0, ...)`` on the train phase's npz with
+             its event audio, reset every 30 s. Prints each result dict
+             (encoder divergence, gate-frame flips, token agreement, truth
+             agreement on the trained weights). Checks that anchor and inc
+             ticks both ran and the divergence has samples, that both arms
+             committed tokens, that K1 launched on tensor cores in every run
+             and K2 in the large-v3 runs only, on the f8 route in the f8 run
+             only.
+19. tick_cost — the serving tick by phase (harness/e2e_tick_cost.py, the
+             twin of scripts/probe_e2e_tick_cost.py): large-v3 bf16 weights
+             from a seed, f8 pools, 24 sessions wired to a BatchScheduler's
+             pools, 20 ticks of 1 s. Prints every tick's lanes, modes and
+             prepare / device / finish ms, the summary (p50 / p95 after 5
+             warm ticks, the dispatch's phases) and the scheduler's warm
+             pass seconds, beside the e2e phase's scheduler tick p50 / p95.
+             Checks that every tick after the first served 24 lanes, that
+             the modes include anchor_xkv and inc_xkv, and that K1 (tensor
+             cores) and K2 (all on the f8 route) launched.
+20. table  — the capacity page (harness/capacity_table.py, the twin of
+             scripts/gen_capacity_table.py) rendered from the capacity
+             phase's arms and the e2e phase's summary, both written as the
+             programs' --out artifacts in a temporary directory (nothing
+             under docs/). Prints the page's rows. Checks that every arm the
+             capacity phase ran has its row with the same numbers, that the
+             e2e rows are there and that the page names the card.
+21. scatter — the policy x model sweep (harness/scatter.py, the twin of
+             scripts/run_scatter_benchmark.py) on ``random:base`` over a
+             dataset it writes: one 4 s clip of event audio with its words
+             as the reference; all three policies, aware and unaware,
+             --compare-exact (8 points; the LocalAgreement and windowed
+             backends pinned as in the la phase). Prints every point.
+             Checks that every point has its rtf and wer, that the exact
+             and incremental points are both there and that K1 launched
+             on tensor cores.
+22. qwen3_capacity — the causal path's capacity (harness/capacity_qwen3.py,
+             the twin of scripts/bench_qwen3_tpu.py) at Qwen3-ASR-0.6B's
+             full dims (24-layer tower, 28-layer Qwen3, bf16), B 8-64.
+             Prints each B's tick ms, streams and decode steps. Checks that
+             every B ran (none out of memory) and recorded its steps.
+             Then K1 in bf16 against its plain version at every (S, T) the
+             ab phase's base run and the scatter sweep launched, at one
+             lane.
+23. kernels — the large form's kernels at the shapes its engines give them:
              K1 at the encoder's two shapes, every prefix bucket over the
              dense cross-KV and over the pool, and both refresh widths, and
-             at every (S, T) the large, f8, load, groups, capacity and e2e
-             runs launched; K2
+             at every (S, T) the large, f8, load, groups, capacity, e2e,
+             tick_cost and ab runs launched (the ab sessions' one-lane
+             groups too); K2
              against its plain version exactly, bf16, f32 and float8_e4m3fn
              pools (f8 from bf16 tails, and from f32 tails at the group's
              width; the tails then hold overflow, non-finite, boundary and
@@ -305,8 +359,10 @@ import ctypes
 import json
 import logging
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
@@ -738,7 +794,9 @@ def phase_kernels_large(geoms: dict, launched: dict) -> dict:
                 key = ("xkv_splice", shape[0], width, str(dtype).replace("torch.", ""),
                        str(tail_dtype or dtype).replace("torch.", ""))
                 if key not in records:
-                    records[key] = _check_k2(shape, K2_WIN[:width], dtype, tail_dtype)
+                    # a one-lane group (the ab runs' sessions) takes a live lane
+                    win = K2_WIN[:width] if width > 1 else K2_WIN[1:2]
+                    records[key] = _check_k2(shape, win, dtype, tail_dtype)
     unchecked = set(launched) - {(S, T) for S, T, _, _, _ in checked}
     if unchecked:
         raise AssertionError(f"the large-form runs launched K1 at unchecked shapes {sorted(unchecked)}")
@@ -4556,13 +4614,13 @@ async def _serve_trained(native_dir: str, words: list, prof_dir: str) -> dict:
     return dict(texts=texts, seeds=seeds, wall=wall, stats=stats, ticks=ticks)
 
 
-def phase_train() -> dict:
+def phase_train(keep: str) -> dict:
     """The trainer on the card: the f32 reference, then the full-width base
     trainer through its entry point, its checkpoint round trip, and the
     trained checkpoint served. Kernel counts run from before the trainer to
-    after the sessions; the train steps must launch none."""
+    after the sessions; the train steps must launch none. The npz is copied
+    into ``keep`` for the ab phase."""
     import gc
-    import tempfile
     from pathlib import Path
 
     from whisperlivekit_tpu_torch.harness import train_structured as TS
@@ -4621,6 +4679,7 @@ def phase_train() -> dict:
             tensors_bit_equal=f"{len(same)}/{n_params}")
         if dims_name != "base" or ndims != MODEL_DIMS["base"] or len(same) != n_params:
             raise AssertionError("train: the npz does not read back bit for bit as the saved weights")
+        npz = shutil.copy(f"{tmp}/w.npz", f"{keep}/w.npz")
         del loaded, native
         gc.collect()
 
@@ -4653,7 +4712,7 @@ def phase_train() -> dict:
         raise AssertionError(f"train: {stats['n_failed_ticks']} ticks failed serving the trained checkpoint")
     if counts["flash_encoder_attn"] <= eval_counts["flash_encoder_attn"]:
         raise AssertionError("train: K1 never launched serving the trained checkpoint")
-    return dict(report=report, counts=counts, stats=stats)
+    return dict(report=report, counts=counts, stats=stats, npz=npz)
 
 
 def phase_kernels_train(launched: dict) -> dict:
@@ -4798,7 +4857,7 @@ def phase_capacity() -> dict:
     return dict(results=results, base=base, large=large, total=total, geom=geom)
 
 
-def phase_e2e() -> dict:
+def phase_e2e(keep: str) -> dict:
     """harness/e2e_serving.py's ``run`` on the card: ``random:large-v3``
     with f8 pools (its defaults), E2E_SESSIONS sessions, E2E_WARM s poured,
     E2E_SHAKEOUT s untimed and E2E_SECONDS s measured, the VAD on with the
@@ -4832,8 +4891,9 @@ def phase_e2e() -> dict:
         recovered.append(A.TICK_PHASE_STATS.get("pool_recovery", (0,))[0])
         real_reset(sched)
 
+    out = f"{keep}/e2e.json"  # the summary, for the table phase
     argv = ["--n", str(E2E_SESSIONS), "--duration", str(E2E_SECONDS), "--warm", str(E2E_WARM),
-            "--shakeout", str(E2E_SHAKEOUT)]
+            "--shakeout", str(E2E_SHAKEOUT), "--out", out]
     BatchScheduler.reset_stats = counted_reset
     TH.reset_engine_cache()
     try:
@@ -4886,7 +4946,383 @@ def phase_e2e() -> dict:
         raise AssertionError(f"e2e: the {summary['vad']} VAD served, not the Silero stand-in")
     if not (counts["flash_encoder_attn"] and counts["xkv_splice"]) or counts["xkv_splice_f8"] != counts["xkv_splice"]:
         raise AssertionError(f"e2e: a kernel never launched, or K2 left the f8 route: {counts}")
-    return dict(summary=summary, counts=counts, geom=geom)
+    return dict(summary=summary, counts=counts, geom=geom, out=out)
+
+
+# ---------------------------------------------------------------------------
+# ab, tick_cost, table, scatter, qwen3_capacity: the port's other measuring
+# programs (twins of the JAX side's scripts) on the card
+# ---------------------------------------------------------------------------
+
+AB_REF_LAYERS = 2        # encoder and decoder depth of the f32 card-vs-CPU A/B (base widths)
+AB_REF_TICKS = 12
+AB_REF_TOL = 1e-4        # the A/B's float fields, card against CPU, over max(1, |CPU value|)
+AB_INTS = ("n_ticks_compared", "inc_tick_mix", "gate_frames", "committed_tokens", "xkv_dtype", "n_ticks",
+           "gate_flip_rate")
+AB_DECODER_TICKS = 22    # run_decoder_ab's ticks at large-v3 (21 inc ticks an arm)
+TICK_COST_ARGV = ["--n", "24", "--ticks", "20", "--model", "large-v3", "--xkv-dtype", "f8"]
+SCATTER_SECONDS = 4.0    # the scatter dataset's one clip of event audio
+SCATTER_SEED = 11
+
+
+class EngineLog:
+    """Records every engine harness/ab_inc_exact.py builds and every session
+    its ``make_inc_session`` wires, while in effect."""
+
+    def __init__(self):
+        from whisperlivekit_tpu_torch.harness import ab_inc_exact as AB
+
+        self.AB, self.engines, self.sessions = AB, [], []
+
+    def __enter__(self):
+        self.real_build, self.real_make = self.AB.build_engine, self.AB.make_inc_session
+
+        def build(*a, **k):
+            self.engines.append(self.real_build(*a, **k))
+            return self.engines[-1]
+
+        def make(engine, group_width=1):
+            self.sessions.append(self.real_make(engine, group_width))
+            return self.sessions[-1]
+        self.AB.build_engine, self.AB.make_inc_session = build, make
+        return self
+
+    def __exit__(self, *exc):
+        self.AB.build_engine, self.AB.make_inc_session = self.real_build, self.real_make
+
+
+def _xkv_geom(eng, xkv) -> dict:
+    """The large form's kernel geometry of an engine and a cross-KV
+    allocator with at least one group (see k1_large_cases)."""
+    from whisperlivekit_tpu_torch.streaming import alignatt as A
+
+    k = xkv.groups[0].k
+    return dict(n_audio_ctx=eng.dims.n_audio_ctx, n_text_layer=eng.dims.n_text_layer, pool_t=k.shape[-1],
+                tail_frames=eng.cfg.enc_tail_frames, prefix_buckets=eng.prefix_buckets,
+                group_width=xkv.group_width,
+                refresh_rows=(A.SKV_REFRESH_ROWS, A._skv_full_refresh_rows(eng, xkv.skv_width)),
+                k1_dtypes=(torch.bfloat16,))
+
+
+def phase_reference_ab(tok) -> None:
+    """harness/ab_inc_exact.py's ``run_model`` and ``run_decoder_ab`` at
+    base widths with AB_REF_LAYERS + AB_REF_LAYERS layers in f32, the same
+    seeded weights on the card and on the CPU, AB_REF_TICKS ticks, with the
+    cross-KV pools off and forced on (the engine maker is the smoke's; the
+    fallback alignment heads, the published ones naming deeper layers).
+    Every integer field must be equal (tick mix, gate frames, committed
+    token counts and agreement), the float fields within AB_REF_TOL."""
+    from dataclasses import replace
+
+    from whisperlivekit_tpu_torch.harness import ab_inc_exact as AB
+    from whisperlivekit_tpu_torch.models.whisper import model as wm
+    from whisperlivekit_tpu_torch.models.whisper.dims import MODEL_DIMS
+    from whisperlivekit_tpu_torch.streaming.alignatt import AlignAttConfig, AlignAttEngine
+
+    dims = replace(MODEL_DIMS["base"], n_audio_layer=AB_REF_LAYERS, n_text_layer=AB_REF_LAYERS)
+    real = AB.build_engine
+    try:
+        for xkv_cache in (False, True):
+            def build(model, ft, xkv_dtype, decoder_dtype="bf16", weights=None, enc_tail_frames=0, device=None):
+                m = wm.init_params(dims, torch.Generator().manual_seed(7), torch.float32, device)
+                if decoder_dtype == "f8":
+                    m = wm.quantize_decoder_f8(m)
+                cfg = AlignAttConfig(language="en", frame_threshold=ft, xkv_cache_dtype=xkv_dtype,
+                                     enc_tail_frames=enc_tail_frames, xkv_cache=xkv_cache)
+                return AlignAttEngine(m, dims, tok, cfg)
+            AB.build_engine = build
+            for name, run in (("run_model", lambda dev: AB.run_model("base", AB_REF_TICKS / 60, 1, "bf16", 3,
+                                                                       device=dev)),
+                              ("run_decoder_ab", lambda dev: AB.run_decoder_ab("base", AB_REF_TICKS / 60, 1, "bf16",
+                                                                               device=dev))):
+                card, cpu = run(CARD), run("cpu")
+                ints = {k: card[k] for k in AB_INTS if k in card}
+                ints_equal = ints == {k: cpu[k] for k in AB_INTS if k in cpu}
+                errs = {}
+                for k, v in (card.get("encoder_divergence") or {}).items():
+                    want = cpu["encoder_divergence"][k]
+                    if k == "n_samples":
+                        ints_equal = ints_equal and v == want
+                    elif v is not None or want is not None:
+                        errs[k] = abs(v - want) / max(1.0, abs(want))
+                log("reference", program=f"ab_inc_exact.{name}", model=f"base widths {AB_REF_LAYERS}+"
+                    f"{AB_REF_LAYERS} layers, f32 random", xkv_cache=xkv_cache, ticks=AB_REF_TICKS,
+                    ints_equal=ints_equal, float_err=errs, **ints)
+                if not ints_equal or any(e > AB_REF_TOL for e in errs.values()):
+                    raise AssertionError(f"ab {name} (xkv_cache={xkv_cache}): the card disagrees with the CPU: "
+                                         f"card {card}, CPU {cpu}")
+    finally:
+        AB.build_engine = real
+
+
+def phase_ab(train_npz: str) -> dict:
+    """harness/ab_inc_exact.py on the card: the f32 reference
+    (phase_reference_ab), then at full width ``run_model("large-v3", 0.75,
+    1, "bf16", 5)`` (45 ticks: the eviction re-anchor runs),
+    ``run_decoder_ab("large-v3", AB_DECODER_TICKS / 60, 1, "f8")`` and ``run_model("base",
+    1.0, 1, "bf16", 5)`` on the train phase's structured checkpoint with its
+    event audio, reset every 30 s. Each run counts its kernels from 0.
+    Checks that anchor and inc ticks both ran and the encoder divergence
+    has samples, that both arms committed tokens, that K1 launched on
+    tensor cores in every run and K2 in the large-v3 runs (on the f8 route
+    in the f8 one only)."""
+    import gc
+
+    from whisperlivekit_tpu_torch.harness import ab_inc_exact as AB
+    from whisperlivekit_tpu_torch.models.whisper.tokenizer import get_tokenizer
+
+    phase_reference_ab(get_tokenizer(True, language="en", task="transcribe"))
+    runs, counts, geoms = {}, {}, {}
+    plans = (
+        ("large-v3 inc_vs_exact", lambda: AB.run_model("large-v3", 0.75, 1, "bf16", 5)),
+        ("large-v3 decoder_bf16_vs_f8", lambda: AB.run_decoder_ab("large-v3", AB_DECODER_TICKS / 60, 1, "f8")),
+        ("base structured", lambda: AB.run_model("base", 1.0, 1, "bf16", 5, weights=train_npz,
+                                                 audio_kind="events", reset_every_s=30)),
+    )
+    for name, run in plans:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        with EngineLog() as el:
+            _reset_kernel_counts()
+            runs[name] = run()
+            torch.cuda.synchronize()
+            counts[name] = _kernel_counts()
+        pooled = [s for s in el.sessions if s.xkv_alloc is not None and s.xkv_alloc.groups]
+        if pooled:
+            geoms[name] = _xkv_geom(el.engines[0], pooled[0].xkv_alloc)
+        del el
+        r, c = runs[name], counts[name]
+        log("ab", run=name, s=round(time.perf_counter() - t, 1), result=json.dumps(r))
+        log("ab", run=name, kernel="flash_encoder_attn", launches=c["flash_encoder_attn"],
+            launches_by_SxT={f"{s}x{t}": n for (s, t), n in sorted(c["k1_shapes"].items())})
+        log("ab", run=name, kernel="xkv_splice", launches=c["xkv_splice"], f8_route=c["xkv_splice_f8"])
+        _check_k1_bodies("ab", c)
+        if "inc_tick_mix" in r:
+            mix, div, toks = r["inc_tick_mix"], r["encoder_divergence"], r["committed_tokens"]
+            if not (mix["inc"] and mix["anchor"] and div["n_samples"] and toks["n_inc"] and toks["n_exact"]):
+                raise AssertionError(f"ab {name}: a tick mode, a divergence sample or an arm's tokens missing: {r}")
+        elif not (r["committed_tokens"]["n_bf16"] and r["committed_tokens"]["n_f8"]):
+            raise AssertionError(f"ab {name}: an arm committed no token: {r}")
+        large, f8 = name.startswith("large-v3"), "f8" in name
+        if not c["flash_encoder_attn"] or (large and not c["xkv_splice"]) or (not large and c["xkv_splice"]):
+            raise AssertionError(f"ab {name}: K1 or K2 launched where it should not, or not where it should: {c}")
+        if c["xkv_splice_f8"] != (c["xkv_splice"] if f8 else 0):
+            raise AssertionError(f"ab {name}: K2's f8 route took {c['xkv_splice_f8']} of {c['xkv_splice']} launches")
+    total = {k: sum(c[k] for c in counts.values()) for k in ("flash_encoder_attn", "xkv_splice", "xkv_splice_f8")}
+    large_shapes = Counter()
+    for name, c in counts.items():
+        if name.startswith("large-v3"):
+            large_shapes += Counter(c["k1_shapes"])
+    return dict(runs=runs, counts=counts, total=total, geoms=geoms, large_k1_shapes=dict(large_shapes),
+                base_k1_shapes=counts["base structured"]["k1_shapes"])
+
+
+def phase_tick_cost(e2e: dict) -> dict:
+    """harness/e2e_tick_cost.py on the card: ``random`` large-v3 bf16 from a
+    seed, f8 pools, 24 sessions, 20 ticks, its scheduler's warm pass timed
+    apart; counts the kernels from 0 before the engine is built. Checks
+    that every tick after the first served 24 lanes, that the modes include
+    ``anchor_xkv`` and ``inc_xkv``, and that K1 (tensor cores) and K2 (all
+    on the f8 route) launched. Prints the rows, the summary and the warm
+    pass, beside the e2e phase's scheduler tick p50 / p95."""
+    import gc
+    import io
+
+    from whisperlivekit_tpu_torch.engine import scheduler as SCH
+    from whisperlivekit_tpu_torch.harness import e2e_tick_cost as TC
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    scheds = []
+    real = SCH.BatchScheduler
+
+    class Recorded(real):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            scheds.append(self)
+
+    SCH.BatchScheduler = Recorded
+    out = io.StringIO()
+    try:
+        t = time.perf_counter()
+        _reset_kernel_counts()
+        with contextlib.redirect_stdout(out):
+            res = TC.run(TICK_COST_ARGV)
+        torch.cuda.synchronize()
+        counts = _kernel_counts()
+        wall = time.perf_counter() - t
+    finally:
+        SCH.BatchScheduler = real
+    (sched,) = scheds
+    geom = _xkv_geom(sched.engine, sched.xkv)
+    del scheds, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    for row in res["rows"]:
+        log("tick_cost", **row)
+    summ, st = res["summary"], e2e["summary"]["runs"][0]["scheduler"]
+    log("tick_cost", argv=" ".join(TICK_COST_ARGV), wall_s=round(wall, 1), warm_pass_s=res["warm_pass_s"],
+        summary=json.dumps(summ))
+    log("tick_cost", e2e_sched_tick_ms_p50=st["tick_ms_p50"], e2e_sched_tick_ms_p95=st["tick_ms_p95"],
+        device_ms_p50=summ["device_ms_p50"], device_ms_p95=summ["device_ms_p95"],
+        prepare_ms_mean=summ["prepare_ms_mean"], finish_ms_mean=summ["finish_ms_mean"])
+    log("tick_cost", kernel="flash_encoder_attn", launches=counts["flash_encoder_attn"],
+        launches_by_SxT={f"{s}x{t}": n for (s, t), n in sorted(counts["k1_shapes"].items())})
+    log("tick_cost", kernel="xkv_splice", launches=counts["xkv_splice"], f8_route=counts["xkv_splice_f8"])
+    _check_k1_bodies("tick_cost", counts)
+    lanes = [r["lanes"] for r in res["rows"][1:]]
+    modes = {m for r in res["rows"] for m in r["modes"]}
+    if len(res["rows"]) != 20 or set(lanes) != {24} or not {"anchor_xkv", "inc_xkv"} <= modes:
+        raise AssertionError(f"tick_cost: lanes after the first tick {lanes}, modes {modes}")
+    if not (counts["flash_encoder_attn"] and counts["xkv_splice"]) or counts["xkv_splice_f8"] != counts["xkv_splice"]:
+        raise AssertionError(f"tick_cost: a kernel never launched, or K2 left the f8 route: {counts}")
+    return dict(result=res, counts=counts, geom=geom)
+
+
+def phase_table(capacity: dict, e2e: dict, card: str) -> dict:
+    """harness/capacity_table.py over the capacity phase's sweep and the
+    e2e phase's summary, both written as the programs' ``--out`` artifacts
+    in a temporary directory, the page too. Checks that every arm the
+    capacity phase ran has its row with the same numbers, that the e2e
+    rows are there and that the page names the card; prints the page."""
+    import tempfile
+    from pathlib import Path
+
+    from whisperlivekit_tpu_torch.harness import capacity as C
+    from whisperlivekit_tpu_torch.harness import capacity_table as CT
+
+    results = capacity["results"]
+    head = C.headline(results[f"{CAPACITY_ARMS[-1][0]}_peak_streams"])
+    with tempfile.TemporaryDirectory(prefix="wlk_table_") as tmp:
+        sweep, page = Path(tmp) / "capacity.json", Path(tmp) / "CAPACITY_torch.md"
+        sweep.write_text(json.dumps(C.artifact(head, results, CARD, "smoke"), indent=1) + "\n")
+        if CT.main([str(sweep), "--e2e", e2e["out"], "--out", str(page)]) != 0:
+            raise AssertionError("table: capacity_table.main failed")
+        text = page.read_text()
+    for ln in text.splitlines():
+        if ln.startswith(("| ", "- ", "**Headline")):
+            log("table", line=repr(ln))
+    missing = []
+    for name, widths, _, dtypes in CAPACITY_ARMS:
+        for B in widths:
+            for dt in dtypes:
+                a = results[f"{name}_B{B}_{dt}"]
+                row = (f"| {name} | {B} | {dt} | {a['inc_ms']} ms | {a['anchor_ms']} ms | {a['amortized_ms']} ms | "
+                       f"**{a['streams']}** |")
+                if row not in text.splitlines():
+                    missing.append(row)
+    runs = e2e["summary"]["runs"]
+    e2e_rows = [ln for ln in text.splitlines() if ln.startswith(tuple(f"| {r['n_sessions']} | " for r in runs))]
+    log("table", arms_missing=len(missing), e2e_rows=len(e2e_rows), names_card=f"device {card}" in text)
+    if missing or len(e2e_rows) != len(runs) or f"device {card}" not in text:
+        raise AssertionError(f"table: arms missing {missing}, e2e rows {e2e_rows}, or the card unnamed")
+    return dict(text=text)
+
+
+def phase_scatter() -> dict:
+    """harness/scatter.py on ``random:base`` over a dataset it writes in a
+    temporary directory: one SCATTER_SECONDS clip of event audio
+    (harness/train_structured.py) with its words as the reference; all
+    three policies, aware both ways, ``--compare-exact``: 8 points. The
+    LocalAgreement and windowed backends are pinned at LA_PINNED (the la
+    phase's: random weights rarely end a window, and each call would
+    decode 6 attempts x 224 steps). Counts the kernels from 0. Checks that
+    every point has its rtf and wer, that the exact and incremental points
+    are both there and that K1 launched on tensor cores."""
+    import os
+    import tempfile
+    import wave
+    from pathlib import Path
+
+    from whisperlivekit_tpu_torch.engine import core
+    from whisperlivekit_tpu_torch.harness import scatter as S
+    from whisperlivekit_tpu_torch.harness import train_structured as TS
+    from whisperlivekit_tpu_torch.harness.vocab import install_standin_vocab
+    from whisperlivekit_tpu_torch.models.whisper.tokenizer import get_tokenizer
+
+    real_init = core.TranscriptionEngine.__init__
+
+    def pinned_init(self, *a, **k):
+        real_init(self, *a, **k)
+        if type(self.asr).__name__ == "LocalAgreementASR":
+            self.asr.asr.transcribe_kargs.update(LA_PINNED)
+
+    was = os.environ.get("WLK_TPU_ASSET_DIR")
+    with tempfile.TemporaryDirectory(prefix="wlk_scatter_") as tmp:
+        install_standin_vocab(f"{tmp}/vocab")
+        words, _ = TS.word_vocab(get_tokenizer(True, language="en", task="transcribe"))
+        data = Path(tmp) / "data"
+        data.mkdir()
+        audio = TS.events_audio(SCATTER_SECONDS, seed=SCATTER_SEED, t0=0.0)
+        with wave.open(str(data / "events.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes((np.clip(audio, -1, 1) * 32767).astype("<i2").tobytes())
+        ref = " ".join(TS.events_words(SCATTER_SEED, 0.0, SCATTER_SECONDS, words))
+        (data / "events.txt").write_text(ref)
+        core.TranscriptionEngine.__init__ = pinned_init
+        try:
+            t = time.perf_counter()
+            _reset_kernel_counts()
+            rc = S.main(["--dataset-dir", str(data), "--models", "random:base", "--compare-exact",
+                         "--out", f"{tmp}/scatter.json"])
+            torch.cuda.synchronize()
+            counts = _kernel_counts()
+            wall = time.perf_counter() - t
+            points = json.loads(Path(f"{tmp}/scatter.json").read_text())["results"] if rc == 0 else []
+        finally:
+            core.TranscriptionEngine.__init__ = real_init
+            if was is None:
+                os.environ.pop("WLK_TPU_ASSET_DIR", None)
+            else:
+                os.environ["WLK_TPU_ASSET_DIR"] = was
+    log("scatter", clip_s=SCATTER_SECONDS, ref_words=len(ref.split()), la_pinned=LA_PINNED, rc=rc,
+        wall_s=round(wall, 1))
+    for p in points:
+        log("scatter", **p)
+    log("scatter", kernel="flash_encoder_attn", launches=counts["flash_encoder_attn"],
+        launches_by_SxT={f"{s}x{t}": n for (s, t), n in sorted(counts["k1_shapes"].items())})
+    _check_k1_bodies("scatter", counts)
+    if (rc != 0 or len(points) != 8 or any(p["rtf"] is None or p["wer"] is None for p in points)
+            or {p["encode"] for p in points} != {"incremental", "exact"} or not counts["flash_encoder_attn"]):
+        raise AssertionError(f"scatter: rc {rc}, points {points}, K1 launches {counts['flash_encoder_attn']}")
+    return dict(points=points, counts=counts)
+
+
+def phase_qwen3_capacity() -> dict:
+    """harness/capacity_qwen3.py on the card at Qwen3-ASR-0.6B's full dims
+    (24-layer tower, 28-layer Qwen3, bf16) over B 8-64. Checks that every B
+    ran (none out of memory) and recorded its decode steps; prints each B's
+    tick ms, streams and steps."""
+    import gc
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from whisperlivekit_tpu_torch.harness import capacity_qwen3 as Q
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory(prefix="wlk_qwen3_") as tmp:
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = Q.main(["--out", f"{tmp}/q.json"])
+        wall = time.perf_counter() - t
+        res = json.loads(Path(f"{tmp}/q.json").read_text())
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("qwen3_capacity", rc=rc, wall_s=round(wall, 1), device=repr(res["device"]),
+        peak_streams=res["peak_streams"])
+    for B in Q.B_SWEEP:
+        log("qwen3_capacity", B=B, **(res[f"B{B}"] if isinstance(res.get(f"B{B}"), dict) else
+                                      {"result": res.get(f"B{B}")}))
+    bad = [B for B in Q.B_SWEEP if not isinstance(res.get(f"B{B}"), dict) or len(res[f"B{B}"]["decode_steps"]) != 3]
+    if rc != 0 or bad:
+        raise AssertionError(f"qwen3_capacity: B {bad} did not run or recorded no steps: {res}")
+    return res
 
 
 def main(argv=None) -> int:
@@ -4928,20 +5364,34 @@ def main(argv=None) -> int:
     timed("causal", phase_causal)
     vox = timed("voxtral", phase_voxtral)
     vox_records = timed("kernels_voxtral", phase_kernels_voxtral, vox["counts"]["k1_shapes"])
-    train = timed("train", phase_train)
-    train_records = timed("kernels_train", phase_kernels_train, train["counts"]["k1_shapes"])
-    capacity = timed("capacity", phase_capacity)
-    cap_records = timed("kernels_capacity", phase_kernels_base, "capacity",
-                        capacity["base"]["k1_shapes"], CAPACITY_ARMS[0][1][0])
-    e2e = timed("e2e", phase_e2e)
+    keep = tempfile.mkdtemp(prefix="wlk_smoke_")  # the train npz and the e2e summary, for later phases
+    try:
+        train = timed("train", phase_train, keep)
+        train_records = timed("kernels_train", phase_kernels_train, train["counts"]["k1_shapes"])
+        capacity = timed("capacity", phase_capacity)
+        cap_records = timed("kernels_capacity", phase_kernels_base, "capacity",
+                            capacity["base"]["k1_shapes"], CAPACITY_ARMS[0][1][0])
+        e2e = timed("e2e", phase_e2e, keep)
+        ab = timed("ab", phase_ab, train["npz"])
+        tick_cost = timed("tick_cost", phase_tick_cost, e2e)
+        timed("table", phase_table, capacity, e2e, card)
+        scatter = timed("scatter", phase_scatter)
+        timed("qwen3_capacity", phase_qwen3_capacity)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    # the ab runs and the scatter sweep serve the base form one lane at a time
+    one_lane_records = timed("kernels_ab_scatter", phase_kernels_base, "ab and scatter",
+                             Counter(ab["base_k1_shapes"]) + Counter(scatter["counts"]["k1_shapes"]), 1)
     large_records = timed("kernels_large", phase_kernels_large,
                           {"large-v3": large["geom"], "large-v3 f8": f8["geom"], LOAD_MODEL: load["geom"],
                            f"{GROUP_MODEL} groups": groups["geom"], "large-v3 capacity": capacity["geom"],
-                           "large-v3 e2e": e2e["geom"]},
+                           "large-v3 e2e": e2e["geom"], "large-v3 tick_cost": tick_cost["geom"],
+                           **{f"{name} (ab)": g for name, g in ab["geoms"].items()}},
                           Counter(large["counts"]["k1_shapes"]) + Counter(f8["counts"]["k1_shapes"])
                           + Counter(load["counts"]["k1_shapes"]) + Counter(groups["counts"]["k1_shapes"])
                           + Counter(capacity["large"]["k1_shapes"])
-                          + Counter(e2e["counts"]["k1_shapes"]))
+                          + Counter(e2e["counts"]["k1_shapes"]) + Counter(tick_cost["counts"]["k1_shapes"])
+                          + Counter(ab["large_k1_shapes"]))
     k3_launched = (Counter(front["counts"]["k3_shapes"]) + Counter(large["counts"]["k3_shapes"])
                    + Counter(f8["counts"]["k3_shapes"]) + Counter(load["counts"]["k3_shapes"]))
     k3_records = timed("kernels_k3", phase_kernels_k3, k3_launched)
@@ -4968,6 +5418,7 @@ def main(argv=None) -> int:
     k1_errs += [r["max_abs_err"] for r in vox_records.values()]
     k1_errs += [r["max_abs_err"] for r in train_records.values()]
     k1_errs += [r["max_abs_err"] for r in cap_records.values()]
+    k1_errs += [r["max_abs_err"] for r in one_lane_records.values()]
     G = large["geom"]["group_width"]
     k1 = large_records[("flash_encoder_attn", 1500, 1500, "bfloat16", G)]
     L = large["geom"]["n_text_layer"]
@@ -4988,10 +5439,14 @@ def main(argv=None) -> int:
                                        "voxtral": vox["counts"]["flash_encoder_attn"],
                                        "train": train["counts"]["flash_encoder_attn"],
                                        "capacity": capacity["total"]["flash_encoder_attn"],
-                                       "e2e": e2e["counts"]["flash_encoder_attn"]},
+                                       "e2e": e2e["counts"]["flash_encoder_attn"],
+                                       "ab": ab["total"]["flash_encoder_attn"],
+                                       "tick_cost": tick_cost["counts"]["flash_encoder_attn"],
+                                       "scatter": scatter["counts"]["flash_encoder_attn"]},
                 "xkv_splice": {"large": large["counts"]["xkv_splice"], "f8": f8["counts"]["xkv_splice"],
                                "load": load["counts"]["xkv_splice"], "groups": groups["counts"]["xkv_splice"],
-                               "capacity": capacity["total"]["xkv_splice"], "e2e": e2e["counts"]["xkv_splice"]},
+                               "capacity": capacity["total"]["xkv_splice"], "e2e": e2e["counts"]["xkv_splice"],
+                               "ab": ab["total"]["xkv_splice"], "tick_cost": tick_cost["counts"]["xkv_splice"]},
                 "log_mel_pallas": {"front": front["counts"]["log_mel_pallas"],
                                    "large": large["counts"]["log_mel_pallas"],
                                    "f8": f8["counts"]["log_mel_pallas"],
@@ -5001,7 +5456,8 @@ def main(argv=None) -> int:
         {f: k2_f8[f] for f in fields + ("device_ms",)}, timed_shape=f"{L}x{G}x{LH}x{DH}"
         f"x{large['geom']['pool_t']} float8_e4m3fn pool, bfloat16 tails",
         launches_by_path={"f8": f8["counts"]["xkv_splice_f8"], "capacity": capacity["total"]["xkv_splice_f8"],
-                          "e2e": e2e["counts"]["xkv_splice_f8"]})}}
+                          "e2e": e2e["counts"]["xkv_splice_f8"], "ab": ab["total"]["xkv_splice_f8"],
+                          "tick_cost": tick_cost["counts"]["xkv_splice_f8"]})}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0][0], "replaces": KERNELS[name][1],
          "launches": sum(launches[name].values()), "launches_by_path": launches[name],

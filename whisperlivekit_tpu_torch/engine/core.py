@@ -87,7 +87,8 @@ def load_whisper_params(config: WLKConfig, device=None):
             spec = str(path).split(":", 1)[1]
         dims = MODEL_DIMS.get(spec, MODEL_DIMS["base"])
         logger.warning("Initializing RANDOM weights (%s dims, seed %d)", spec, RANDOM_WEIGHTS_SEED)
-        gen = torch.Generator().manual_seed(RANDOM_WEIGHTS_SEED)
+        # drawn on the device: a CPU generator takes ~12 s at large-v3
+        gen = torch.Generator(device).manual_seed(RANDOM_WEIGHTS_SEED)
         model, name = wm.init_params(dims, gen, dtype=dtype, device=device), spec
     else:
         model, dims, name = load_model(path or size, dtype=dtype, lora_path=config.lora_path,

@@ -40,8 +40,8 @@ counterpart (eager PyTorch compiles nothing ahead). An arm that runs out
 of card memory is recorded as ``FAILED OutOfMemoryError``, its tensors are
 dropped and the sweep goes on; any other exception propagates.
 
-Weights are random from a seed (``init_params``); the cost does not depend
-on them, since the decode steps are pinned. Prints ONE JSON line on stdout:
+Weights are random from a seed (``init_params``, drawn on the device); the
+cost does not depend on them, since the decode steps are pinned. Prints ONE JSON line on stdout:
 ``{"metric", "value", "unit", "vs_baseline"}``; the sweep's lines and the
 ``sub_metrics`` line go to stderr. ``main(argv, device="cpu")`` runs on
 the CPU (tests); without ``device`` it needs CUDA. Imports no JAX.
@@ -317,7 +317,7 @@ def bench_model(name: str, widths, results: dict, tail_frames=384, dtypes=("bf16
 
     device = resolve_device(device)
     dims = MODEL_DIMS[name]
-    base_model = wm.init_params(dims, torch.Generator().manual_seed(0), torch.bfloat16, device)
+    base_model = wm.init_params(dims, torch.Generator(device).manual_seed(0), torch.bfloat16, device)
     q_model = None  # built once, for the f8d arms
     rng = np.random.default_rng(0)
     suppress_mask = _suppress(dims, device)
@@ -419,22 +419,38 @@ def card_label(device) -> str:
         return f"{torch.cuda.get_device_name(device)}, power limit not read"
 
 
+def headline(streams: float) -> dict:
+    """The one stdout line: the headline model's latency-honest peak."""
+    return {
+        "metric": METRIC,
+        "value": round(streams, 1),
+        "unit": "streams",
+        "vs_baseline": round(streams / BASELINE_STREAMS, 2),
+    }
+
+
 def sweep(device=None) -> tuple:
     """Run every model of SWEEP; returns (the headline JSON object, the
     sub-metrics)."""
     device = resolve_device(device)
     results: dict = {}
-    headline = 0.0
+    value = 0.0
     for name, widths, tail, dtypes, is_headline in SWEEP:
         streams = bench_model(name, widths, results, tail_frames=tail, dtypes=dtypes, device=device)
         if is_headline:
-            headline = streams
+            value = streams
+    return headline(value), results
+
+
+def artifact(headline_obj: dict, results: dict, device, round_=None) -> dict:
+    """The ``--out`` artifact (what harness/capacity_table.py renders)."""
     return {
-        "metric": METRIC,
-        "value": round(headline, 1),
-        "unit": "streams",
-        "vs_baseline": round(headline / BASELINE_STREAMS, 2),
-    }, results
+        "round": round_,
+        "device": card_label(device),
+        "platform": platform.platform(),
+        "headline": headline_obj,
+        "sub_metrics": results,
+    }
 
 
 def main(argv=None, device=None) -> int:
@@ -447,13 +463,7 @@ def main(argv=None, device=None) -> int:
     print(json.dumps({"sub_metrics": results}), file=sys.stderr, flush=True)
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({
-                "round": args.round,
-                "device": card_label(device),
-                "platform": platform.platform(),
-                "headline": headline_obj,
-                "sub_metrics": results,
-            }, f, indent=1)
+            json.dump(artifact(headline_obj, results, device, args.round), f, indent=1)
             f.write("\n")
     print(json.dumps(headline_obj), flush=True)
     return 0

@@ -166,8 +166,11 @@ def init_params(
     """Random weights with the shapes and scales of the JAX ``init_params``
     (normal * d_in**-0.5 dense, normal * (3*C_in)**-0.5 conv, normal * 0.02
     token embedding, zero biases and position embedding, unit LN scales).
-    The numbers differ from JAX's: ``torch.Generator`` is not ``PRNGKey``."""
-    model = Whisper(dims)
+    The numbers differ from JAX's: ``torch.Generator`` is not ``PRNGKey``.
+    The module is built and drawn on the generator's device, so a card
+    generator fills full-width weights fast."""
+    with torch.device(generator.device):
+        model = Whisper(dims)
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, Dense):
