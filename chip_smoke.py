@@ -288,7 +288,7 @@ Phases (each prints lines; any failure raises and exits non-zero):
              twin of scripts/probe_e2e_tick_cost.py): large-v3 bf16 weights
              from a seed, f8 pools, 24 sessions wired to a BatchScheduler's
              pools, 20 ticks of 1 s. Prints every tick's lanes, modes and
-             prepare / device / finish ms, the summary (p50 / p95 after 5
+             prepare / tick wall / tick device / finish ms, the summary (p50 / p95 after 5
              warm ticks, the dispatch's phases) and the scheduler's warm
              pass seconds, beside the e2e phase's scheduler tick p50 / p95.
              Checks that every tick after the first served 24 lanes, that
@@ -5165,7 +5165,8 @@ def phase_tick_cost(e2e: dict) -> dict:
     log("tick_cost", argv=" ".join(TICK_COST_ARGV), wall_s=round(wall, 1), warm_pass_s=res["warm_pass_s"],
         summary=json.dumps(summ))
     log("tick_cost", e2e_sched_tick_ms_p50=st["tick_ms_p50"], e2e_sched_tick_ms_p95=st["tick_ms_p95"],
-        device_ms_p50=summ["device_ms_p50"], device_ms_p95=summ["device_ms_p95"],
+        tick_wall_ms_p50=summ["tick_wall_ms_p50"], tick_wall_ms_p95=summ["tick_wall_ms_p95"],
+        tick_device_ms_p50=summ["tick_device_ms_p50"],
         prepare_ms_mean=summ["prepare_ms_mean"], finish_ms_mean=summ["finish_ms_mean"])
     log("tick_cost", kernel="flash_encoder_attn", launches=counts["flash_encoder_attn"],
         launches_by_SxT={f"{s}x{t}": n for (s, t), n in sorted(counts["k1_shapes"].items())})

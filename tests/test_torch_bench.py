@@ -4,7 +4,8 @@ unknown dataset, aggregate and table; its AOT-probe case is a TPU probe and
 has no twin), the copies against the JAX modules, and the bench run in
 process on ``random:dev-tiny`` on the CPU over ``--dataset-dir``,
 ``--dataset synthetic`` and ``--audio``. Also the scheduler's
-``profile_dir``: a session's first ticks leave a ``torch.profiler`` trace.
+``profile_dir``: a session's first ticks leave a ``torch.profiler`` trace,
+with the tracer's spans in it.
 """
 
 import asyncio
@@ -149,3 +150,9 @@ def test_profile_dir_writes_a_trace(assets, tmp_path):
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any(str(e.get("name", "")).startswith("aten::") for e in events)
+    # the tracer's spans, merged on the profiler's clock: each traced tick's
+    # sched.tick span holds aten ops of its tick
+    ticks = [e for e in events if e.get("cat") == "wlk_span" and e["name"] == "sched.tick"]
+    assert len(ticks) == 5
+    ops = [e["ts"] for e in events if str(e.get("name", "")).startswith("aten::")]
+    assert all(any(t["ts"] <= ts <= t["ts"] + t["dur"] for ts in ops) for t in ticks)

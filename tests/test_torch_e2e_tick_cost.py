@@ -5,9 +5,12 @@ dev-tiny with JAX's f32 weights bridged through numpy (both sides'
 vocabulary):
 
 - every row's lane count and tick mix (``modes``) equal the script's, row
-  for row;
-- the summary has the script's keys plus ``device``, and the dispatch's
-  ``phases`` the same programs with the same call counts;
+  for row; the script's ``device_ms`` is ``tick_wall_ms`` (host wall time
+  around the tick), beside ``tick_device_ms`` (the tracer's CUDA events,
+  null off CUDA);
+- the summary has the script's keys (its ``device_ms_*`` as
+  ``tick_wall_ms_*``) plus ``tick_device_ms_p50`` and ``device``, and the
+  dispatch's ``phases`` the same programs with the same call counts;
 - the warm pass's line comes first (no warm pass off CUDA);
 - the twin runs without jax and the JAX package.
 """
@@ -88,8 +91,9 @@ def test_rows_equal_the_script(runs):
     assert len(got["rows"]) == len(want["rows"]) == 8
     for g, w in zip(got["rows"], want["rows"]):
         assert (g["tick"], g["lanes"], g["modes"]) == (w["tick"], w["lanes"], w["modes"])
-        assert set(g) == set(w)
-        assert all(g[k] >= 0 for k in ("prepare_ms", "device_ms", "finish_ms"))
+        assert set(g) == set(w) - {"device_ms"} | {"tick_wall_ms", "tick_device_ms"}
+        assert all(g[k] >= 0 for k in ("prepare_ms", "tick_wall_ms", "finish_ms"))
+        assert g["tick_device_ms"] is None  # no CUDA events on the CPU
     modes = {m for r in got["rows"] for m in r["modes"]}
     assert {"anchor", "inc"} <= modes
 
@@ -97,11 +101,13 @@ def test_rows_equal_the_script(runs):
 def test_summary_keys_and_phases_equal_the_script(runs):
     want, got, _ = runs
     ws, gs = want["summary"], got["summary"]
-    assert set(gs) == set(ws) | {"device"}
+    renamed = {"device_ms_p50": "tick_wall_ms_p50", "device_ms_p95": "tick_wall_ms_p95"}
+    assert set(gs) == {renamed.get(k, k) for k in ws} | {"tick_device_ms_p50", "device"}
     assert gs["device"] == "cpu" and (gs["n"], gs["model"]) == (ws["n"], ws["model"])
+    assert gs["tick_device_ms_p50"] is None
     assert {k: v["n"] for k, v in gs["phases"].items()} == {k: v["n"] for k, v in ws["phases"].items()}
     # the warm-up cut: percentiles over rows[5:]
-    assert gs["device_ms_p50"] == sorted(r["device_ms"] for r in got["rows"][5:])[1]
+    assert gs["tick_wall_ms_p50"] == sorted(r["tick_wall_ms"] for r in got["rows"][5:])[1]
 
 
 def test_lines_warm_pass_rows_summary(runs):

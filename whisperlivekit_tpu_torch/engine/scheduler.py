@@ -30,20 +30,26 @@ constructor returns, not in a thread (``precompile_serving_programs``).
 With ``profile_dir`` the first ``PROFILE_TICKS`` ticks run on the event
 loop's own thread under ``torch.profiler`` (CPU ops, and the card's kernels
 where there is one), which records only the CPU ops of the thread that
-started it; the Chrome trace lands in ``profile_dir``. The audio and encoder pools and
+started it, and under the tracer (``engine/trace.py``), whose spans join
+the Chrome trace that lands in ``profile_dir``. Every tick is traced in
+aggregate (``stats()["trace"]``): the gather, the worker's call and the
+finish, each lane's wait and queue wait. The audio and encoder pools and
 the large form's cross-KV allocator live on the engine's device.
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import logging
 import os
+import time
 from typing import List, Optional
 
 import torch
 
 from ..timed import ASRToken
+from .trace import TICK_ID, TRACER, aggregates, chrome_events
 from ..streaming.alignatt import (
     ANCHOR_REASONS,
     TICK_PHASE_STATS,
@@ -77,7 +83,7 @@ def _auto_lane_cap(engine: AlignAttEngine, requested: int) -> int:
 
 
 class _Pending:
-    __slots__ = ("session", "ti", "fut", "deadline", "enqueued")
+    __slots__ = ("session", "ti", "fut", "deadline", "enqueued", "tick")
 
     def __init__(self, session, ti, fut, deadline, enqueued):
         self.session = session
@@ -85,6 +91,7 @@ class _Pending:
         self.fut = fut
         self.deadline = deadline
         self.enqueued = enqueued
+        self.tick = None  # the group tick that serves it
 
 
 class _Quantiles:
@@ -133,8 +140,7 @@ class BatchScheduler:
         self._wait_q = _Quantiles()
         self._emit_q = _Quantiles()
         self._tick_q = _Quantiles()
-        TICK_PHASE_STATS.clear()
-        ANCHOR_REASONS.clear()
+        TRACER.reset()
         # torch.profiler over the first PROFILE_TICKS ticks (view the trace
         # in Perfetto or chrome://tracing)
         self._profile_dir = profile_dir
@@ -206,10 +212,15 @@ class BatchScheduler:
         loop = asyncio.get_running_loop()
         now = loop.time()
         fut: asyncio.Future = loop.create_future()
-        await self._queue.put(
-            _Pending(session, tick_inputs, fut, deadline or now + self.tick_budget_s, now)
-        )
-        return await fut
+        p = _Pending(session, tick_inputs, fut, deadline or now + self.tick_budget_s, now)
+        t0 = time.perf_counter_ns()
+        try:
+            await self._queue.put(p)
+            return await fut
+        finally:
+            # submit -> result; crosses awaits, so an explicit pair
+            TRACER.record("session.wait", t0, time.perf_counter_ns(), lanes=1,
+                          tick=p.tick, sid=id(session))
 
     def reset_stats(self) -> None:
         """Zero the counters/quantiles (benchmark warm-up exclusion)."""
@@ -220,8 +231,7 @@ class BatchScheduler:
         self._wait_q = _Quantiles()
         self._emit_q = _Quantiles()
         self._tick_q = _Quantiles()
-        TICK_PHASE_STATS.clear()
-        ANCHOR_REASONS.clear()
+        TRACER.reset()
 
     def stats(self) -> dict:
         return {
@@ -246,32 +256,55 @@ class BatchScheduler:
                 for k, (n, tot, lanes) in TICK_PHASE_STATS.items() if n
             },
             "anchor_reasons": dict(ANCHOR_REASONS),
+            # every span, counter and histogram since reset_stats()
+            # (engine/trace.py); phases and reasons are the views above
+            "trace": aggregates(),
         }
 
     # ---- internals ----------------------------------------------------------------
 
+    def _tick_call(self, tis):
+        """``run_tick_batch`` under the tick's ``sched.tick`` span, with the
+        calling thread's CPU seconds while the tracer records."""
+        with TRACER.span("sched.tick", lanes=len(tis)) as sp:
+            cpu0 = time.thread_time_ns() if TRACER.enabled else None
+            outs = run_tick_batch(
+                self.engine, tis, self.engine.tokenizer, self.pool, self.enc_pool, self.xkv,
+            )
+            if cpu0 is not None:
+                sp.attrs["cpu_ns"] = time.thread_time_ns() - cpu0
+        return outs
+
     def _profiled_tick(self, tis):
         """One tick on the event loop's thread: the first starts the
-        profiler, the ``PROFILE_TICKS``-th stops it and writes the trace."""
+        profiler and the tracer, the ``PROFILE_TICKS``-th stops both and
+        writes the trace, the tracer's spans merged into it on the
+        profiler's clock."""
         if self._profiler is None:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             self._profiler = torch.profiler.profile(activities=acts)
             self._profiler.start()
+            TRACER.enable(self.engine.device)
             self._profiled = 0
             logger.info("profiling first %d ticks -> %s", PROFILE_TICKS, self._profile_dir)
         try:
-            return run_tick_batch(
-                self.engine, tis, self.engine.tokenizer, self.pool, self.enc_pool, self.xkv,
-            )
+            return self._tick_call(tis)
         finally:
             self._profiled += 1
             if self._profiled >= PROFILE_TICKS:
                 self._profiler.stop()
+                records = TRACER.disable()
                 os.makedirs(self._profile_dir, exist_ok=True)
                 path = os.path.join(self._profile_dir, f"wlk_ticks_{os.getpid()}.pt.trace.json")
                 self._profiler.export_chrome_trace(path)
+                with open(path) as f:
+                    trace = json.load(f)
+                trace["traceEvents"] += chrome_events(
+                    records, base_ns=int(trace.get("baseTimeNanoseconds", 0)))
+                with open(path, "w") as f:
+                    json.dump(trace, f)
                 self._profile_dir = None
                 logger.info("profile trace written to %s", path)
 
@@ -279,11 +312,8 @@ class BatchScheduler:
         if self._profile_dir is not None:
             return self._profiled_tick(tis)  # blocks the loop for the traced ticks
         # the tick blocks on device reads; a worker thread keeps the event
-        # loop feeding audio meanwhile
-        return await asyncio.to_thread(
-            run_tick_batch, self.engine, tis, self.engine.tokenizer,
-            self.pool, self.enc_pool, self.xkv,
-        )
+        # loop feeding audio meanwhile (it inherits the task's TICK_ID)
+        return await asyncio.to_thread(self._tick_call, tis)
 
     def _ensure_running(self) -> None:
         loop = asyncio.get_running_loop()
@@ -296,10 +326,13 @@ class BatchScheduler:
         """One lane group: carried overflow first (rotation), then the queue
         drained for up to window_s, ordered earliest-deadline-first."""
         loop = asyncio.get_running_loop()
+        t0 = time.perf_counter_ns()
         batch = list(self._carry)
+        carried = len(batch)
         self._carry = []
         if not batch:
             batch.append(await self._queue.get())
+        t_w = time.perf_counter_ns()
         deadline = loop.time() + self.window_s
         while True:
             timeout = deadline - loop.time()
@@ -309,6 +342,7 @@ class BatchScheduler:
                 batch.append(await asyncio.wait_for(self._queue.get(), timeout))
             except asyncio.TimeoutError:
                 break
+        t_e = time.perf_counter_ns()
         # drain whatever arrived while packing (no extra waiting)
         while True:
             try:
@@ -340,15 +374,22 @@ class BatchScheduler:
             self._carry = batch[self.max_lanes :] + self._carry
             batch = batch[: self.max_lanes]
             self.n_rotations += 1
+        # crosses awaits, so an explicit pair
+        TRACER.record("sched.gather", t0, time.perf_counter_ns(), lanes=len(batch),
+                      carried=carried, first_wait_ns=t_w - t0, window_wait_ns=t_e - t_w)
         return batch
 
     async def _run(self) -> None:
         while True:
+            tick = TRACER.new_tick()
+            TICK_ID.set(tick)  # this task's context; the worker inherits it
             batch = await self._gather_group()
             loop = asyncio.get_running_loop()
             t_start = loop.time()
             for p in batch:
+                p.tick = tick
                 self._wait_q.add(t_start - p.enqueued)
+                TRACER.observe("sched.queue_wait", t_start - p.enqueued)
 
             tis = [p.ti for p in batch]
             try:
@@ -357,13 +398,14 @@ class BatchScheduler:
                 self.n_lanes_served += len(batch)
                 t_done = loop.time()
                 self._tick_q.add(t_done - t_start)
-                for p, out in zip(batch, outs):
-                    self._emit_q.add(t_done - p.enqueued)
-                    if not p.fut.done():
-                        try:
-                            p.fut.set_result(p.session.finish_tick(p.ti, out))
-                        except Exception as e:  # per-lane host policy error
-                            p.fut.set_exception(e)
+                with TRACER.span("sched.finish", lanes=len(batch)):
+                    for p, out in zip(batch, outs):
+                        self._emit_q.add(t_done - p.enqueued)
+                        if not p.fut.done():
+                            try:
+                                p.fut.set_result(p.session.finish_tick(p.ti, out))
+                            except Exception as e:  # per-lane host policy error
+                                p.fut.set_exception(e)
             except Exception as e:
                 self.n_failed_ticks += 1
                 logger.exception("batch tick failed")

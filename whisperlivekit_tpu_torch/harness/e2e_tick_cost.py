@@ -12,9 +12,13 @@ per session per tick, and prints each tick's wall time split three ways:
 
 - ``prepare_ms``: synthesizing the sessions' audio and ``prepare_tick``
   (host);
-- ``device_ms``: the host's wall clock around ``run_tick_batch``, which
-  ends with the read of the packed outputs, so it holds the launches, the
-  device's work and that read (the key keeps the JAX script's name);
+- ``tick_wall_ms``: the host's wall clock around ``run_tick_batch``,
+  which ends with the read of the packed outputs, so it holds the
+  launches, the device's work and that read (the JAX script's
+  ``device_ms``);
+- ``tick_device_ms``: from the tracer's CUDA events (``engine/trace.py``),
+  the tick's dispatch start to the end of the device work it enqueued;
+  null off CUDA;
 - ``finish_ms``: ``finish_tick``, the host policy.
 
 The summary's percentiles and means skip the first five ticks (warm-up).
@@ -26,8 +30,10 @@ inline=True)`` has no counterpart (the port's scheduler has no inline
 mode), so the scheduler is constructed and its loop never started; on
 CUDA the large form's constructor runs the serving programs' warm pass
 (``precompile_serving_programs``), which is timed apart and printed on its
-own line (``warm_pass_s``). The summary adds ``device`` (the card's name
-and power limit). Weights: ``harness/ab_inc_exact.py``'s ``build_engine``
+own line (``warm_pass_s``); the tracer records while the ticks run, for
+``tick_device_ms``. The summary's ``tick_wall_ms_*`` are the script's
+``device_ms_*``; it adds ``tick_device_ms_p50`` and ``device`` (the card's
+name and power limit). Weights: ``harness/ab_inc_exact.py``'s ``build_engine``
 (random bf16 from a seed, published alignment heads).
 ``main(argv, device="cpu")`` (or ``run``, which returns the rows and the
 summary) runs on the CPU (tests); without ``device`` it needs CUDA.
@@ -58,6 +64,7 @@ def run(argv=None, device=None) -> dict:
     """Run the probe; prints the warm pass's line, one line a tick and the
     summary line; returns ``{"rows", "summary", "warm_pass_s"}``."""
     from ..engine.scheduler import BatchScheduler
+    from ..engine.trace import TRACER
     from ..streaming import alignatt as A
     from .ab_inc_exact import build_engine
     from .capacity import card_label
@@ -80,6 +87,7 @@ def run(argv=None, device=None) -> dict:
 
     tok = engine.tokenizer
     rows = []
+    TRACER.enable(engine.device)
     for i in range(args.ticks):
         t0 = time.perf_counter()
         tis, live = [], []
@@ -92,8 +100,10 @@ def run(argv=None, device=None) -> dict:
         t1 = time.perf_counter()
         if not tis:
             continue
+        TRACER.last_device_ns = None
         outs = A.run_tick_batch(engine, tis, tok, pool=sched.pool, enc_pool=sched.enc_pool, xkv=sched.xkv)
         t2 = time.perf_counter()
+        dev_ns = TRACER.last_device_ns
         for s, ti, o in zip(live, tis, outs):
             s.finish_tick(ti, o)
         t3 = time.perf_counter()
@@ -106,18 +116,22 @@ def run(argv=None, device=None) -> dict:
         row = {
             "tick": i, "lanes": len(tis), "modes": modes,
             "prepare_ms": round((t1 - t0) * 1e3, 1),
-            "device_ms": round((t2 - t1) * 1e3, 1),
+            "tick_wall_ms": round((t2 - t1) * 1e3, 1),
+            "tick_device_ms": round(dev_ns * 1e-6, 1) if dev_ns is not None else None,
             "finish_ms": round((t3 - t2) * 1e3, 1),
         }
         rows.append(row)
         print(json.dumps(row), flush=True)
 
-    dev = sorted(r["device_ms"] for r in rows[5:])
+    TRACER.disable()
+    wall = sorted(r["tick_wall_ms"] for r in rows[5:])
+    dev = sorted(r["tick_device_ms"] for r in rows[5:] if r["tick_device_ms"] is not None)
     warm = len(rows) > 5
     summary = {
         "n": args.n, "model": args.model,
-        "device_ms_p50": dev[len(dev) // 2] if dev else None,
-        "device_ms_p95": dev[min(int(0.95 * len(dev)), len(dev) - 1)] if dev else None,
+        "tick_wall_ms_p50": wall[len(wall) // 2] if wall else None,
+        "tick_wall_ms_p95": wall[min(int(0.95 * len(wall)), len(wall) - 1)] if wall else None,
+        "tick_device_ms_p50": dev[len(dev) // 2] if dev else None,
         "prepare_ms_mean": round(float(np.mean([r["prepare_ms"] for r in rows[5:]])), 1) if warm else None,
         "finish_ms_mean": round(float(np.mean([r["finish_ms"] for r in rows[5:]])), 1) if warm else None,
         "phases": {k: {"n": n, "total_ms": round(t * 1e3, 1)}

@@ -5,8 +5,9 @@ One *tick* decodes B lanes at once: mel -> encoder -> cross-KV -> prefill
 (prefix) -> up to ``max_steps`` of (filter -> DRY -> argmax -> attention
 gate / rewind / EOT decisions). The JAX module runs the step loop as a
 ``lax.while_loop`` inside one jitted program; here it is a Python loop that
-reads one flag per step from the device (whether any lane is still active)
-and skips the decoder pass whose outputs nobody reads (the loop's last).
+reads one number per step from the device (how many lanes are still
+active, which the tracer's ``core.*`` counters add up) and skips the
+decoder pass whose outputs nobody reads (the loop's last).
 Only one packed int32 array [B, 2*max_steps+5] leaves the device per tick,
 laid out exactly as the JAX one.
 
@@ -26,6 +27,7 @@ from __future__ import annotations
 
 import logging
 import threading
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -39,6 +41,7 @@ from ..models.whisper import model as wm
 from ..ops.f8 import F8, write_cast
 from ..ops.median import median_filter
 from ..ops.mel_pallas import log_mel_pallas
+from ..engine.trace import ANCHOR_REASONS, TICK_PHASE_STATS, TRACER  # noqa: F401 (facade)
 
 logger = logging.getLogger(__name__)
 
@@ -312,9 +315,16 @@ def _tick_core(
     thr = torch.where(is_last, 4, int(frame_threshold))
     K = align.count
 
-    running = bool(active_in.any())  # one host read per step (the loop bound)
+    # one host read per step (the loop bound): the lanes still active,
+    # counted (step.sync spans; core.* counters)
+    t_core = time.perf_counter_ns()
+    n_live = int(active_in.sum())
+    t = time.perf_counter_ns()
+    TRACER.record("step.sync", t_core, t)
+    live = 0
     k = 0
-    while running and k < max_steps:
+    while n_live and k < max_steps:
+        live += n_live
         cur_len = prefix_len + k  # [B]
 
         # ---- logit filters ----
@@ -381,8 +391,13 @@ def _tick_core(
         # ---- decode the sampled token (attention row + next logits) ----
         # the loop ends when every lane stopped or k+1 == max_steps; that
         # step's decoder pass would produce outputs no one reads — skip it
-        running = k + 1 < max_steps and bool(active.any())
-        if running:
+        t_s = time.perf_counter_ns()
+        TRACER.record("step.launch", t, t_s)
+        n_live = int(active.sum()) if k + 1 < max_steps else 0
+        t = time.perf_counter_ns()
+        if k + 1 < max_steps:
+            TRACER.record("step.sync", t_s, t)
+        if n_live:
             pos_d = pos_w if scratch is None else torch.where(active_in, pos_w, scratch)
             new_logits, step_aprobs, cache = wm.decode(
                 model, tok[:, None], pos_d, xkv, cache, dims, align=align,
@@ -398,7 +413,14 @@ def _tick_core(
         acount = acount + active.float()
         last_row = torch.where(active[:, None, None], step_row, last_row)
         k += 1
+        t_s = time.perf_counter_ns()
+        TRACER.record("step.launch", t, t_s)
+        t = t_s
 
+    TRACER.record("core", t_core, t, lanes=B, steps=k, rows=B * k, live=live)
+    TRACER.count("core.steps", k)
+    TRACER.count("core.rows", B * k)
+    TRACER.count("core.live", live)
     # lanes still active at loop exhaustion keep everything they decoded
     reason = torch.where(active, STOP_CAP, reason).to(torch.int32)
     n_keep = torch.where(active, max_steps, n_keep).to(torch.int32)
@@ -746,7 +768,8 @@ def alignatt_tick_anchor_pooled(
     G = xkv_k.shape[1]
     slots = slots.long()
     real = slots < G
-    lanes, dst = real.nonzero()[:, 0], slots[real]
+    with TRACER.span("anchor.sync"):  # the lane read waits for the device
+        lanes, dst = real.nonzero()[:, 0], slots[real]
     T = fresh.k.shape[-1]
     for pool, src in ((xkv_k, fresh.k), (xkv_v, fresh.v)):
         for layer in range(pool.shape[0]):
@@ -815,15 +838,9 @@ def alignatt_tick_anchor_group(
     )
 
 
-# time, by encode-mode partition (exported via BatchScheduler.stats)
-TICK_PHASE_STATS: dict = {}
-
-# why lanes fell off the cheap "inc" path (exported next to TICK_PHASE_STATS)
-ANCHOR_REASONS: dict = {}
-
-
 def _count_anchor(reason: str) -> None:
-    ANCHOR_REASONS[reason] = ANCHOR_REASONS.get(reason, 0) + 1
+    """Why a lane fell off the cheap "inc" path (``ANCHOR_REASONS``)."""
+    TRACER.count("anchor." + reason)
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,8 @@ import torch
 
 from . import alignatt as _A
 from ..audio.mel import N_SAMPLES
-from .alignatt import SKV_REFRESH_ROWS, TICK_PHASE_STATS
+from ..engine.trace import TRACER
+from .alignatt import SKV_REFRESH_ROWS
 from .pools import AudioPool, EncPool, XKVAllocator, XKVGroupPool, _dispatch_pooled_recovering
 from .session_plan import TickInputs, TickOutputs, _skv_full_refresh_rows
 
@@ -167,23 +168,20 @@ def _timed_pool_update(pool: AudioPool, ticks: List[TickInputs]) -> None:
     # Audio-pool rows must stay in sync with the sessions' _pool_synced
     # bookkeeping (committed in prepare_tick), so apply updates for every
     # pool-backed lane before anything gathers.
-    t_p = time.perf_counter()
-    pool.update(
-        [
-            (t.pool_lane, *t.pool_update)
-            for t in ticks
-            if t.pool_lane is not None and t.pool_update is not None
-        ]
-    )
-    n_t, tot, lanes = TICK_PHASE_STATS.get("pool_update", (0, 0.0, 0))
-    TICK_PHASE_STATS["pool_update"] = (
-        n_t + 1, tot + (time.perf_counter() - t_p), lanes + len(ticks)
-    )
+    with TRACER.span("phase.pool_update", lanes=len(ticks)):
+        pool.update(
+            [
+                (t.pool_lane, *t.pool_update)
+                for t in ticks
+                if t.pool_lane is not None and t.pool_update is not None
+            ]
+        )
 
 
 def dispatch_tick_batch(engine, ticks, tokenizer, pool, enc_pool, xkv) -> list:
     """Dispatch every group's tick without fetching outputs.
-    Returns [(phase_key, lane_idxs, fetch, t_dispatch_start), ...]."""
+    Returns [(phase_key, lane_idxs, fetch, t_dispatch_start_ns), ...]."""
+    TRACER.tick_dispatched()
     if pool is not None:
         _timed_pool_update(pool, ticks)
     groups: dict = {}
@@ -197,42 +195,44 @@ def dispatch_tick_batch(engine, ticks, tokenizer, pool, enc_pool, xkv) -> list:
         groups.setdefault(key, []).append(i)
     pends = []
     for mode, idxs in groups.items():
-        t_g = time.perf_counter()
+        t_g = time.perf_counter_ns()
         group = [ticks[i] for i in idxs]
-        if isinstance(mode, tuple):
-            _, gi, enc_mode = mode
-            if enc_mode == "inc":
-                fetch = _dispatch_group_xkv_inc(
-                    engine, group, tokenizer, pool, enc_pool, xkv, gi
-                )
-                xkv.note_group_tick(gi)
-            else:
-                fetch = _dispatch_group_xkv_anchor(
-                    engine, group, tokenizer, pool, enc_pool, xkv, gi
-                )
-        elif mode == "inc":
-            fetch = _dispatch_group_inc(engine, group, tokenizer, pool, enc_pool)
-        elif mode == "anchor":
-            fetch = _dispatch_group_anchor(engine, group, tokenizer, pool, enc_pool)
-        else:
-            fetch = _dispatch_group_legacy(engine, group, tokenizer, pool)
         mk = mode[2] + "_xkv" if isinstance(mode, tuple) else (mode or "legacy")
+        with TRACER.span("dispatch." + mk, lanes=len(idxs)):
+            if isinstance(mode, tuple):
+                _, gi, enc_mode = mode
+                if enc_mode == "inc":
+                    fetch = _dispatch_group_xkv_inc(
+                        engine, group, tokenizer, pool, enc_pool, xkv, gi
+                    )
+                    xkv.note_group_tick(gi)
+                else:
+                    fetch = _dispatch_group_xkv_anchor(
+                        engine, group, tokenizer, pool, enc_pool, xkv, gi
+                    )
+            elif mode == "inc":
+                fetch = _dispatch_group_inc(engine, group, tokenizer, pool, enc_pool)
+            elif mode == "anchor":
+                fetch = _dispatch_group_anchor(engine, group, tokenizer, pool, enc_pool)
+            else:
+                fetch = _dispatch_group_legacy(engine, group, tokenizer, pool)
         pends.append((mk, idxs, fetch, t_g))
+    TRACER.tick_enqueued()
     return pends
 
 
 def finalize_tick_batch(pends: list, n: int) -> List[TickOutputs]:
     """Fetch every dispatched group's outputs (input order restored).
-    Phase wall time spans dispatch start -> fetch done per group."""
+    Each mode's phase (``TICK_PHASE_STATS``) spans its dispatch start ->
+    its fetch done, so the phases of a tick that mixes modes overlap."""
     outs: List[Optional[TickOutputs]] = [None] * n
     for mk, idxs, fetch, t_g in pends:
-        res = fetch()
-        n_t, tot, lanes = TICK_PHASE_STATS.get(mk, (0, 0.0, 0))
-        TICK_PHASE_STATS[mk] = (
-            n_t + 1, tot + (time.perf_counter() - t_g), lanes + len(idxs)
-        )
+        with TRACER.span("fetch." + mk, lanes=len(idxs)):
+            res = fetch()
+        TRACER.record("phase." + mk, t_g, time.perf_counter_ns(), lanes=len(idxs))
         for i, o in zip(idxs, res):
             outs[i] = o
+    TRACER.tick_fetched()
     return outs  # type: ignore[return-value]
 
 

@@ -19,6 +19,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..engine.trace import TRACER
 from ..models.whisper.dims import ModelDimensions
 from ..audio.mel import N_SAMPLES
 from ..ops.f8 import F8, write_cast
@@ -374,10 +375,7 @@ def _recover_group(engine, xkv: XKVAllocator, gi: int, enc_pool: Optional[EncPoo
     if enc_pool is not None:
         enc_pool.pool.zero_()
         enc_pool.generation += 1
-    from . import alignatt as _A  # the facade owns the shared stats dict
-
-    n_t, tot, lanes = _A.TICK_PHASE_STATS.get("pool_recovery", (0, 0.0, 0))
-    _A.TICK_PHASE_STATS["pool_recovery"] = (n_t + 1, tot, lanes)
+    TRACER.add("phase.pool_recovery")  # counted as a phase of no time
 
 
 def _dispatch_pooled_recovering(dispatch, engine, xkv, gi, enc_pool, ticks,

@@ -22,6 +22,7 @@ from typing import List, Tuple
 import numpy as np
 
 from ..timed import ASRToken, ChangeSpeaker, Transcript
+from ..engine.trace import TRACER
 from .alignatt import AlignAttEngine, AlignAttSession
 
 logger = logging.getLogger(__name__)
@@ -218,7 +219,7 @@ class SimulStreamingOnlineProcessor:
     async def _process_iter_async(self, is_last: bool = False) -> Tuple[List[ASRToken], float]:
         """Scheduler path: this session's tick joins the packed device batch."""
         try:
-            ti = self.model.prepare_tick(is_last)
+            ti = self._traced_prepare(is_last)
             if ti is None:
                 return [], self.end
             timestamped_words = await self.scheduler.submit(self.model, ti)
@@ -228,7 +229,7 @@ class SimulStreamingOnlineProcessor:
                 for _ in range(self._FINAL_DRAIN_TICKS):
                     if getattr(self.model, "last_stop_reason", None) != STOP_CAP:
                         break
-                    ti = self.model.prepare_tick(True)
+                    ti = self._traced_prepare(True)
                     if ti is None:
                         break
                     timestamped_words += await self.scheduler.submit(self.model, ti)
@@ -236,6 +237,10 @@ class SimulStreamingOnlineProcessor:
             logger.exception("SimulStreaming scheduled tick error")
             return [], self.end
         return self._postprocess(timestamped_words)
+
+    def _traced_prepare(self, is_last: bool):
+        with TRACER.span("session.prepare", lanes=1, sid=id(self.model)):
+            return self.model.prepare_tick(is_last)
 
     async def _start_silence_async(self) -> Tuple[List[ASRToken], float]:
         return await self._process_iter_async(is_last=True)
