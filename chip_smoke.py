@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k3-ab build/parent/log_mel.cu
+    python3 chip_smoke.py --k4
 
 The second form builds the kernels, then times only K3 against PR 3/4's
 DFT-by-product kernel (another log_mel.cu, e.g. the parent commit's copy in
 a directory .gitignore lists) in turns, old, new, new, old, at B 1, 2, 4
 and 8, 80 and 128 mels, the 30 s window and a ragged 2 s length: both held
 to the plain version, timed by events and by graph replay, beside the new
-kernel's bound and its share of it, and its check below.
+kernel's bound and its share of it, and its check below. The third builds
+the kernels and runs only the kernels_k4 phase below.
 
 Phases (each prints lines; any failure raises and exits non-zero):
 
@@ -28,6 +30,17 @@ Phases (each prints lines; any failure raises and exits non-zero):
              and a ragged T whose padding holds 1e4, inf and nan, in f32 and
              in bf16, in the encoder's and the pool's layout. Each K1 record
              names the body it took (k1_plan) and its key splits.
+   kernels_k4 — K4 (dry_penalty, the decode step's DRY penalty) against its
+             plain version bit for bit at turbo's vocabulary and text
+             context, 64 and 96 lanes, the rows harness/dry_cases.py
+             plants (runs under, at and over the 50-token cap, shared next
+             ids, empty, short, special and wrapping lanes): the kernel's ms (events), device ms (a graph's replay),
+             the host's enqueue of one call, the plain version's ms and
+             enqueue, the launches one call of each makes (torch.profiler)
+             and the byte bound. Then one decode step of _tick_core at
+             large-v3-turbo's decoder widths, 64 lanes, with K4 and with
+             the plain version patched in: equal packed outputs, the
+             kernels and copies a step puts on the card, a step's wall ms.
 3. main    — the base form: an f32 tick on the card against the CPU, then
              Whisper ``base`` at full width (random weights from a seed):
              TranscriptionEngine + AudioProcessor sessions fed speech-like
@@ -379,6 +392,7 @@ from whisperlivekit_tpu_torch.ops.flash_encoder import (
     k1_plan,
 )
 from whisperlivekit_tpu_torch.audio.mel import _const, log_mel_spectrogram
+from whisperlivekit_tpu_torch.harness.dry_cases import EOT, greedy_loop_args, planted_rows
 from whisperlivekit_tpu_torch.harness.signals import speech_like
 from whisperlivekit_tpu_torch.ops.mel_pallas import (
     _floor_and_scale,
@@ -391,6 +405,7 @@ from whisperlivekit_tpu_torch.ops.mel_pallas import (
     log_mel_pallas,
     log_mel_pallas_plain,
 )
+from whisperlivekit_tpu_torch.ops.dry import dry_penalty, dry_penalty_plain
 from whisperlivekit_tpu_torch.ops.f8 import to_e4m3fn
 from whisperlivekit_tpu_torch.ops.xkv_merge import W_SPLICE, xkv_splice, xkv_splice_plain
 from whisperlivekit_tpu_torch.streaming.alignatt import AlignAttEngine
@@ -414,6 +429,8 @@ KERNELS = {  # name -> (sources, the first the main paths' (bf16) body; the TPU 
                    "whisperlivekit_tpu/ops/xkv_merge.py:73"),
     "log_mel_pallas": (("whisperlivekit_tpu_torch/csrc/log_mel.cu",),
                        "whisperlivekit_tpu/ops/mel_pallas.py:73"),
+    "dry_penalty": (("whisperlivekit_tpu_torch/csrc/dry_penalty.cu",),
+                    "none: XLA fuses whisperlivekit_tpu/streaming/alignatt.py dry_penalty"),
 }
 SOURCES = [src for srcs, _ in KERNELS.values() for src in srcs]
 WGMMA_BODIES = ("wgmma_tma", "wgmma_cpasync")  # K1's bf16 bodies (tensor cores)
@@ -959,6 +976,117 @@ def phase_k3_ab(src: str) -> None:
             new_ms=[round(t, 4) for t, _ in times["new"]], new_device_ms=[round(t, 4) for _, t in times["new"]],
             bound_ms=round(rec["bound_ms"], 5), bound_share=round(rec["bound_ms"] / new_device, 3),
             speedup_device=round(min(t for _, t in times["old"]) / new_device, 2))
+
+
+# K4: the decode step's DRY penalty, at turbo's vocabulary and text context
+K4_V, K4_L = 51866, 448
+K4_LANES = (64, 96)  # a turbo lane group's cap; the base form's capacity arm
+
+
+def _cuda_launches(fn) -> int:
+    """Kernels and copies one call of ``fn`` puts on the card (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
+def _check_k4(B: int) -> dict:
+    """K4 against its plain version at B lanes, bit for bit; timed (CUDA
+    events, the device alone from a graph's replay, the host's enqueue of
+    one call), the launches one call of each path makes, logged. Beside
+    it, the device time of the row copy alone (every lane empty: the
+    kernel returns after copying) and of ``Tensor.clone`` on the logits."""
+    lg, tk, cl = (t.cuda() for t in planted_rows(B, K4_V, seed=400 + B, L=K4_L))
+    want = dry_penalty_plain(lg, tk, cl, EOT)
+    got = dry_penalty(lg, tk, cl, EOT)
+    torch.cuda.synchronize()
+    exact = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    penalized = int((got != lg).sum())
+    kernel = lambda: dry_penalty(lg, tk, cl, EOT)  # noqa: E731
+    plain = lambda: dry_penalty_plain(lg, tk, cl, EOT)  # noqa: E731
+    ms, device_ms, plain_ms = _time_ms(kernel), _time_graph_ms(kernel), _time_ms(plain, iters=5)
+    empty = torch.zeros_like(cl)
+    copy_ms = _time_graph_ms(lambda: dry_penalty(lg, tk, empty, EOT))
+    clone_ms = _time_graph_ms(lambda: lg.clone())
+    host_us, plain_host_us = _host_us(kernel), _host_us(plain, n=10)
+    launches = dict(kernel=_cuda_launches(kernel), plain=_cuda_launches(plain))
+    # the logits read once and the result written once, the token rows and lengths read
+    moved = 2 * lg.numel() * 4 + tk.numel() * 8 + cl.numel() * 8
+    bound = bound_ms(0, moved)
+    log("kernels", kernel="dry_penalty", shape=f"B{B}xL{K4_L}xV{K4_V}", exact=exact, penalized=penalized,
+        ms=round(ms, 4), device_ms=round(device_ms, 4), copy_only_device_ms=round(copy_ms, 4),
+        clone_device_ms=round(clone_ms, 4), plain_ms=round(plain_ms, 4), host_us=round(host_us, 1),
+        plain_host_us=round(plain_host_us, 1), launches_per_call=launches,
+        GB_per_s=round(moved / device_ms / 1e6, 1), bound_ms=round(bound["bound_ms"], 4),
+        bound_share=round(bound["bound_ms"] / device_ms, 3))
+    if not exact or not penalized:
+        raise AssertionError(f"dry_penalty disagrees with its plain version at B={B} (penalized {penalized})")
+    return dict(max_abs_err=0.0, ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
+                copy_only_device_ms=copy_ms, host_us=host_us, plain_host_us=plain_host_us,
+                launches_per_call=launches, **bound)
+
+
+def phase_k4_step() -> dict:
+    """One turbo decode step with K4 and with the plain version patched in:
+    the kernels and copies a step puts on the card (torch.profiler, a loop
+    of 3 steps less one of 2), and a step's wall ms (a loop of 9 steps less
+    one of 1, each to a synchronize; in turns plain, kernel, kernel, plain).
+    _tick_core at large-v3-turbo's decoder widths (4 layers of 1280, bf16,
+    64 lanes, the dense cross-KV of random encoder rows), the packed
+    outputs of both equal."""
+    import dataclasses
+
+    from whisperlivekit_tpu_torch.models.whisper import model as wm
+    from whisperlivekit_tpu_torch.models.whisper.dims import MODEL_DIMS
+    from whisperlivekit_tpu_torch.streaming import alignatt as A
+
+    dims = dataclasses.replace(MODEL_DIMS["large-v3-turbo"], n_audio_layer=1)  # the encoder does not run
+    model = wm.init_params(dims, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16, device="cuda")
+    args = greedy_loop_args(64, dims, 96, 1, "cuda")
+    paths = {"kernel": dry_penalty, "plain": dry_penalty_plain}
+
+    def run(path, steps):
+        A.dry_penalty = paths[path]
+        try:
+            out = A._tick_core(model, max_steps=steps, **args)
+            torch.cuda.synchronize()
+            return out
+        finally:
+            A.dry_penalty = dry_penalty
+
+    outs = {p: run(p, 8) for p in paths}
+    if not torch.equal(outs["kernel"], outs["plain"]):
+        raise AssertionError("_tick_core with K4 differs from the plain version's")
+    launches = {p: _cuda_launches(lambda p=p: run(p, 3)) - _cuda_launches(lambda p=p: run(p, 2)) for p in paths}
+
+    def wall_ms(path, steps):
+        run(path, steps)
+        t = time.perf_counter()
+        run(path, steps)
+        return (time.perf_counter() - t) * 1e3
+
+    step_ms = {p: [] for p in paths}
+    for p in ("plain", "kernel", "kernel", "plain"):
+        step_ms[p].append(round((wall_ms(p, 9) - wall_ms(p, 1)) / 8, 3))
+    log("k4_step", lanes=64, widths="large-v3-turbo decoder, bf16", launches_per_step=launches,
+        step_ms=step_ms, outputs_equal=True)
+    del model
+    torch.cuda.empty_cache()
+    return dict(launches_per_step=launches, step_ms=step_ms)
+
+
+def phase_kernels_k4() -> dict:
+    """K4 at the turbo group's 64 lanes and the base form's 96, then one
+    decode step with and without it (phase_k4_step)."""
+    records = {B: _check_k4(B) for B in K4_LANES}
+    records["step"] = phase_k4_step()
+    return records
 
 
 def phase_reference() -> None:
@@ -1518,12 +1646,14 @@ def _reset_kernel_counts() -> None:
     log_mel_pallas.launches = 0
     log_mel_pallas.shapes.clear()
     log_mel_pallas.routes.clear()
+    dry_penalty.launches = 0
 
 
 def _kernel_counts() -> dict:
     return dict(flash_encoder_attn=flash_encoder_attn.launches, xkv_splice=xkv_splice.launches,
                 xkv_splice_f8=xkv_splice.f8_launches,
-                log_mel_pallas=log_mel_pallas.launches, k1_shapes=dict(flash_encoder_attn.shapes),
+                log_mel_pallas=log_mel_pallas.launches, dry_penalty=dry_penalty.launches,
+                k1_shapes=dict(flash_encoder_attn.shapes),
                 k1_bodies=dict(flash_encoder_attn.bodies), k1_splits=dict(flash_encoder_attn.splits),
                 k3_shapes=dict(log_mel_pallas.shapes), k3_routes=dict(log_mel_pallas.routes))
 
@@ -5330,10 +5460,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--k3-ab", metavar="LOG_MEL_CU", default=None,
                     help="only time K3 against PR 3/4's DFT-by-product log_mel.cu at this path, in turns")
+    ap.add_argument("--k4", action="store_true",
+                    help="only check and time K4 and one turbo decode step with and without it")
     args = ap.parse_args(argv)
     if args.k3_ab:
         card = phase_device()
         phase_k3_ab(args.k3_ab)
+        print(card, flush=True)
+        return 0
+    if args.k4:
+        card = phase_device()
+        phase_kernels_k4()
         print(card, flush=True)
         return 0
     watch = LogWatch()
@@ -5348,6 +5485,7 @@ def main(argv=None) -> int:
 
     card = timed("device", phase_device)
     records = timed("kernels", phase_kernels)
+    k4_records = timed("kernels_k4", phase_kernels_k4)
     main_run = timed("main", phase_main)
     front = timed("front", phase_front)
     large = timed("large", phase_large)
@@ -5451,7 +5589,14 @@ def main(argv=None) -> int:
                 "log_mel_pallas": {"front": front["counts"]["log_mel_pallas"],
                                    "large": large["counts"]["log_mel_pallas"],
                                    "f8": f8["counts"]["log_mel_pallas"],
-                                   "load": load["counts"]["log_mel_pallas"]}}
+                                   "load": load["counts"]["log_mel_pallas"]},
+                # every greedy AlignAtt decode step, on every path that runs _tick_core
+                "dry_penalty": {name: run["counts"]["dry_penalty"] for name, run in (
+                    ("base", main_run), ("front", front), ("large", large), ("f8", f8),
+                    ("beam", beam), ("load", load), ("groups", groups), ("e2e", e2e),
+                    ("tick_cost", tick_cost))}}
+    if not launches["dry_penalty"]["base"]:
+        raise AssertionError("K4 never launched on the base form's main path")
     # K2's f8 route (float8_e4m3fn pools from bf16 tails): its own record
     extra = {"xkv_splice": {"f8": dict(
         {f: k2_f8[f] for f in fields + ("device_ms",)}, timed_shape=f"{L}x{G}x{LH}x{DH}"
@@ -5464,7 +5609,8 @@ def main(argv=None) -> int:
          "launches": sum(launches[name].values()), "launches_by_path": launches[name],
          "max_abs_err": err, **{f: rec[f] for f in fields}, "timed_shape": shape,
          **{f: rec[f] for f in ("dft_bound_ms", "device_ms", "library_device_ms", "body", "load_route",
-                                 "stft_chain_ms", "default_front_ms") if f in rec},
+                                 "stft_chain_ms", "default_front_ms", "host_us", "plain_host_us",
+                                 "launches_per_call") if f in rec},
          **({"f32_source": KERNELS[name][0][1]} if len(KERNELS[name][0]) > 1 else {}),
          **extra.get(name, {})}
         for name, rec, err, shape in (
@@ -5473,6 +5619,7 @@ def main(argv=None) -> int:
                                     f"x{large['geom']['pool_t']} bf16"),
             ("log_mel_pallas", k3, max(r["max_abs_err"] for r in k3_records.values()),
              "B8xN480000, 80 mels, f32"),
+            ("dry_penalty", k4_records[64], 0.0, f"B64xL{K4_L}xV{K4_V} f32"),
         )
     ]}), flush=True)
     print(card, flush=True)

@@ -46,7 +46,9 @@ Spans (the tree of one group tick) and counters, and what reads them:
   it);
 - counters ``core.calls``, ``core.steps`` (decode-loop iterations),
   ``core.rows`` (padded batch x iterations), ``core.live`` (lanes still
-  active at each iteration's start); ``anchor.<reason>``; histogram
+  active at each iteration's start); ``dry.kernel`` (each launch of the
+  decode step's DRY kernel, ``ops/dry.py``: ``core.steps`` when every step
+  ran it); ``anchor.<reason>``; histogram
   ``sched.queue_wait`` (submit to the tick's start on the loop, every lane).
 
 ``window_summary`` reads a window's records: the share of it that no

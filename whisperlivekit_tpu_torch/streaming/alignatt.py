@@ -2,12 +2,12 @@
 whisperlivekit_tpu/streaming/alignatt.py).
 
 One *tick* decodes B lanes at once: mel -> encoder -> cross-KV -> prefill
-(prefix) -> up to ``max_steps`` of (filter -> DRY -> argmax -> attention
-gate / rewind / EOT decisions). The JAX module runs the step loop as a
-``lax.while_loop`` inside one jitted program; here it is a Python loop that
-reads one number per step from the device (how many lanes are still
-active, which the tracer's ``core.*`` counters add up) and skips the
-decoder pass whose outputs nobody reads (the loop's last).
+(prefix) -> up to ``max_steps`` of (filter -> DRY (``ops/dry.py``, kernel
+K4) -> argmax -> attention gate / rewind / EOT decisions). The JAX module
+runs the step loop as a ``lax.while_loop`` inside one jitted program; here
+it is a Python loop that reads one number per step from the device (how
+many lanes are still active, which the tracer's ``core.*`` counters add up)
+and skips the decoder pass whose outputs nobody reads (the loop's last).
 Only one packed int32 array [B, 2*max_steps+5] leaves the device per tick,
 laid out exactly as the JAX one.
 
@@ -38,6 +38,7 @@ from ..models.whisper.dims import ModelDimensions, default_alignment_heads
 from ..models.whisper.tokenizer import Tokenizer
 from ..audio.mel import log_mel_spectrogram, pad_or_trim
 from ..models.whisper import model as wm
+from ..ops.dry import dry_penalty
 from ..ops.f8 import F8, write_cast
 from ..ops.median import median_filter
 from ..ops.mel_pallas import log_mel_pallas
@@ -95,53 +96,6 @@ class AlignAttConfig:
     anchor_cohorts: int = 1       # stagger group re-anchors over this many sub-epochs
     serving_prefix_cap: int = 0   # pooled-serving decode-prefix cap; 0 = auto (96 with xkv)
     serving_commit_budget: int = 16  # self-KV pool rows past the cap for mid-epoch commits
-
-
-# ---------------------------------------------------------------------------
-# DRY repetition penalty
-# ---------------------------------------------------------------------------
-
-
-def dry_penalty(logits: torch.Tensor, tokens: torch.Tensor, cur_len: torch.Tensor, eot: int):
-    """Vectorized DRY v0 (reference align_att_base.py:492-537).
-
-    logits [B,V], tokens [B,L], cur_len [B]. Penalizes tokens that would
-    extend a verbatim repetition of the current suffix.
-    """
-    B, L = tokens.shape
-    V = logits.shape[-1]
-    tokens = tokens.long()
-    end = cur_len.long()[:, None] - 1                     # [B,1] suffix end
-    idx = torch.arange(L, device=tokens.device)[None, :]  # [1,L]
-    last = tokens.gather(1, end % L)  # [B,1]; an empty lane wraps, as in JAX
-
-    # candidate positions i: tokens[i] == last, i < cur_len-1, next is text
-    next_tok = torch.roll(tokens, -1, dims=1)
-    cand = (tokens == last) & (idx < end) & (next_tok < eot)
-
-    # match length: consecutive equality of the suffixes ending at i and at
-    # cur_len-1, over up to 49 steps back
-    length = torch.ones((B, L), dtype=torch.long, device=tokens.device)
-    alive = cand
-    for l in range(1, 50):
-        j = idx - l        # position behind the candidate
-        k = end - l        # position behind the suffix end
-        ok = (j >= 0) & (k > idx)
-        tj = tokens.gather(1, j.clamp(min=0).expand(B, L))
-        tk = tokens.gather(1, k.clamp(min=0))
-        alive = alive & ok & (tj == tk) & (tj < eot)
-        length = length + alive.long()
-
-    pen_len = torch.where(cand, length, 0)
-    # scatter-max per next-token id
-    pen_per_tok = torch.zeros((B, V), dtype=torch.long, device=tokens.device).scatter_reduce_(
-        1, torch.where(cand, next_tok, 0), pen_len, "amax", include_self=True
-    )
-    penalty = torch.where(
-        pen_per_tok >= 2, torch.pow(2.0, pen_per_tok.float() - 2.0), 0.0
-    )
-    apply = (end + 1 >= 5) & (last < eot)  # [B,1]
-    return logits - torch.where(apply, penalty, 0.0)
 
 
 # ---------------------------------------------------------------------------
