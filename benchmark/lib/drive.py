@@ -12,7 +12,12 @@ shape that drives it: a module ``traffic/loops/<loop>.py``, found by name
   (``trace_after``), then stops feeding, lets the ticks in flight return
   and returns the ``Window``.
 
-A new arrival shape is a new file there; no file here changes.
+A new arrival shape is a new file there; no file here changes. The loops
+know the system under test only through its family's contract
+(``families/__init__.py``): the configuration's ``model_type`` finds it,
+the fourth thing found by name after the mix, its loop and the metric
+readers. A model of a new kind is a family file, a plain reference and a
+configuration file; no file here changes for it either.
 
 Seeds: where a mix gives ``base_seed``, the voices and the plan come from
 it, the same for every run, and ``--seed`` only adds ``sample_noise`` (a

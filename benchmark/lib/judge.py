@@ -39,6 +39,13 @@ def choose(records: List[TickRecord], w0: float, w1: float, seed: int, max_steps
         if w0 <= r.t_done <= w1:
             n = R.served_count(_tick(r, True), max_steps)
             scored[r.sid] = scored.get(r.sid, 0) + n
+    return pick(scored, seed, tokens, max_sessions)
+
+
+def pick(scored: Dict[int, int], seed: int, tokens: int, max_sessions: int) -> List[int]:
+    """Sessions to replay, from the tokens each served in the window: the
+    one that served the most, then others in an order drawn from the seed
+    until ``tokens`` are covered or ``max_sessions`` are chosen."""
     cands = sorted(s for s, n in scored.items() if n > 0)
     if not cands:
         return []
@@ -83,6 +90,11 @@ def judge(records: List[TickRecord], w0: float, w1: float, seed: int, cfg: dict,
         out = R.replay_session(model, audio, ticks, tail_frames, max_steps, eot, space)
         gaps += out.gaps
         replayed += out.ticks
+    return verdict(gaps, chosen, replayed)
+
+
+def verdict(gaps: List[float], chosen: List[int], replayed: int) -> dict:
+    """The judge's result over the scored tokens' logit gaps."""
     g = sorted(gaps)
     return {
         "max_logit_gap": g[-1] if g else None,

@@ -8,7 +8,8 @@ serving dtype (``draw`` says how the seed enters). Scales follow the program's o
 one (linear weights N(0, 1/d_in), convolutions N(0, 1/(3 c_in)), token
 embedding N(0, 0.02)); biases, layer-norm gains and offsets and the learned
 decoder positions, which that init leaves at 0 or 1, get small draws
-(0.02) here, so a step that dropped one would show.
+(0.02) here, so a step that dropped one would show. ``draw_shapes`` draws
+any family's list of tensors the same way.
 """
 
 from __future__ import annotations
@@ -79,10 +80,16 @@ def draw(cfg: dict, seed: int, device, dtype=torch.bfloat16) -> Dict[str, torch.
     resets a session, and so in the work a window holds; a deployment
     serves one model, and a perturbed copy of one random model keeps that
     behaviour while every number still changes with the seed."""
-    shapes = whisper_shapes(cfg)
+    return draw_shapes(whisper_shapes(cfg), cfg.get("weights", {}), seed, device, dtype)
+
+
+@torch.no_grad()
+def draw_shapes(shapes: List[Tuple[str, tuple, str]], spec: dict, seed: int, device,
+                dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """The tensors ``shapes`` names (name, shape, kind), drawn as ``draw``
+    says, with ``spec`` a configuration's ``weights``."""
     sizes = [int(torch.Size(s).numel()) for _, s, _ in shapes]
     big = sum(n for n, (_, _, k) in zip(sizes, shapes) if k in ("linear", "conv", "embed"))
-    spec = cfg.get("weights", {})
     pools = _unit(sizes, big, spec.get("base_seed", seed), device)
     if "base_seed" in spec:
         noise = _unit(sizes, big, seed, device)

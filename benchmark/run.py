@@ -5,18 +5,24 @@
 Run from the repository's root on a machine with the cards the cell asks
 for. Everything a cell is made of is found by name from ``BENCHMARK.json``:
 its configuration file, its traffic mix (``benchmark/traffic/<mix>.json``),
-the loop that mix names (``benchmark/traffic/loops/<loop>.py``) and each
-metric's reader (``benchmark/metrics/<metric>.py``). The last line of
-standard output is the result (JSON); the checks of ``correct``, each
-number beside its limit, are the last lines of standard error.
+the loop that mix names (``benchmark/traffic/loops/<loop>.py``), each
+metric's reader (``benchmark/metrics/<metric>.py``) and the family of the
+configuration's ``model_type`` (``benchmark/families/<model_type>.py``:
+its system under test, weights and judge; ``families/__init__.py`` has the
+contract). A model of a new kind is a family file, a plain reference under
+``benchmark/reference/`` and a configuration file; no file here changes.
+The last line of standard output is the result (JSON); the checks of
+``correct``, each number beside its limit, are the last lines of standard
+error.
 
 ``--trace 1`` reports the cell's per-layer metrics instead of its
 end-to-end ones, from a run that traces a span of the same load right
 after the window; the span's pace is set beside the window's and flagged
 where it is more than ``SPAN_SLOWER`` slower. ``--control f8`` runs the
-program's own f8 path (f8 decoder linears and cross-KV pools) in the
-program's place, which the check must refuse; ``--sessions`` overrides an
-open-loop mix's session count (the knee sweep). Neither is used by a check.
+Whisper family's own f8 path (f8 decoder linears and cross-KV pools) in
+the program's place, which the check must refuse (a family without such a
+path raises); ``--sessions`` overrides an open-loop mix's session count
+(the knee sweep). Neither is used by a check.
 """
 
 from __future__ import annotations
@@ -87,6 +93,21 @@ def loop(name: str):
     return _module(BENCH / "traffic" / "loops" / f"{name}.py", f"bench_loop_{name.replace('.', '_')}")
 
 
+def family(cfg: dict):
+    """The family of a configuration's ``model_type``,
+    ``families/<model_type>.py``; a type with no file there raises."""
+    name = cfg.get("model_type")
+    path = BENCH / "families" / f"{name}.py"
+    if not isinstance(name, str) or not path.is_file():
+        raise LookupError(f"no family for model_type {name!r}: looked for {path}")
+    key = f"bench_family_{name}"
+    spec = importlib.util.spec_from_file_location(key, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[key] = mod  # a family's dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def forbidden_modules() -> list:
     return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FORBIDDEN))
 
@@ -128,17 +149,16 @@ def run_once(manifest: dict, workload: str, seed: int, seconds: float, trace: bo
     """One run of a cell; returns the result object (with ``checks``)."""
     import torch
 
-    from lib import drive, judge, weights
-    from lib.audio import write_vocab
+    from lib import drive
     from lib.context import Context
-    from lib.system import System
     from lib.trace import DeviceTrace, KernelCalls
 
     _, cfg, traffic = load_cell(manifest, workload)
-    vocab = write_vocab(CACHE / "assets")
+    fam = family(cfg)
+    assets = fam.assets(CACHE / "assets")
     dtype = getattr(torch, cfg["serving"]["dtype"])
-    sd = weights.draw(cfg, seed, device, dtype)
-    system = System(cfg, sd, device, control=control)
+    sd = fam.draw(cfg, seed, device, dtype)
+    system = fam.System(cfg, sd, device, control=control)
     calls = tracer = None
     if trace:
         calls = KernelCalls()
@@ -155,9 +175,7 @@ def run_once(manifest: dict, workload: str, seed: int, seconds: float, trace: bo
         calls.uninstall()
     dev = torch.device(device)
     memory_peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
-    max_steps = int(cfg["serving"]["max_steps"])
-    tail = int(system.engine.cfg.enc_tail_frames)
-    eot = int(cfg["eos_token_id"])
+    fields = fam.context(system, cfg)
     records = system.recorder.records
     trace_sum = None
     if tracer is not None and tracer.window_s:
@@ -165,7 +183,7 @@ def run_once(manifest: dict, workload: str, seed: int, seconds: float, trace: bo
         trace_sum.update(k1_least_s=calls.k1_least_s, k1_calls=calls.k1_calls,
                          k2_least_s=calls.k2_least_s, k2_calls=calls.k2_calls)
     ctx = Context(cfg=cfg, traffic=traffic, workload=workload, window=win, records=records,
-                  setup_s=setup_s, max_steps=max_steps, eot=eot, tail_frames=tail, trace=trace_sum)
+                  setup_s=setup_s, trace=trace_sum, **fields)
     metrics = {}
     for m in metrics_for(manifest, workload, trace):
         v = reader(m["name"])(ctx)
@@ -190,8 +208,8 @@ def run_once(manifest: dict, workload: str, seed: int, seconds: float, trace: bo
     limit = cfg["check"].get("mean_logit_gap")
     t_judge = time.perf_counter()
     try:
-        verdict = judge.judge(records, win.w0, win.w1, seed, cfg, sd, audio_of, tail, vocab, device,
-                              tokens=int(jt.get("tokens", 400)), max_sessions=int(jt.get("max_sessions", 8)))
+        verdict = fam.judge(records, win.w0, win.w1, seed, cfg, sd, audio_of, fields["tail_frames"], assets,
+                            device, tokens=int(jt.get("tokens", 400)), max_sessions=int(jt.get("max_sessions", 8)))
         err = None
     except ValueError as e:
         verdict, err = {"mean_logit_gap": None, "tokens_compared": 0}, str(e)

@@ -32,6 +32,7 @@ def test_every_name_resolves_to_a_file():
         arrivals = run.loop(traffic["loop"])
         assert callable(arrivals.run) and callable(arrivals.plan)
         assert cfg["serving"]["dtype"]
+        assert callable(run.family(cfg).System)
     for m in man["end_to_end"] + man["per_layer"]:
         assert callable(run.reader(m["name"]))
 
@@ -44,7 +45,9 @@ def test_a_dropped_in_file_is_found(tmp_path, monkeypatch):
         "def plan(traffic, seed, n):\n    return list(range(n))\n\n"
         "async def run(system, traffic, seed, seconds, trace=None, sessions=None):\n    return 'burst'\n")
     (tree / "traffic" / "new-mix.json").write_text(json.dumps({"loop": "burst", "sessions": 3}))
-    (tree / "configs" / "new.json").write_text(json.dumps({"serving": {"dtype": "float32"}}))
+    (tree / "configs" / "new.json").write_text(json.dumps({"model_type": "new_model", "serving": {"dtype": "float32"}}))
+    (tree / "families" / "new_model.py").write_text(
+        "from dataclasses import dataclass\n\n@dataclass\nclass System:\n    lanes: int = 4\n")
     man = json.loads((ROOT / "BENCHMARK.json").read_text())
     man["configs"].append({"name": "new", "file": "benchmark/configs/new.json"})
     man["workloads"].append({"name": "new-cell", "config": "new", "traffic": "new-mix", "chips": 1})
@@ -53,6 +56,7 @@ def test_a_dropped_in_file_is_found(tmp_path, monkeypatch):
     assert run.reader("new_metric.x")(None) == 7.0
     _, cfg, traffic = run.load_cell(man, "new-cell")
     assert traffic["sessions"] == 3 and cfg["serving"]["dtype"] == "float32"
+    assert run.family(cfg).System().lanes == 4
     arrivals = run.loop(traffic["loop"])
     assert arrivals.plan(traffic, 1, 3) == [0, 1, 2]
     assert asyncio.run(arrivals.run(None, traffic, 1, 1.0)) == "burst"
@@ -206,8 +210,10 @@ def test_nothing_the_benchmark_loads_imports_jax():
         "import sys, pathlib; sys.path[:0] = ['benchmark', '.']\n"
         "import run; run._env()\n"
         "from lib import audio, context, drive, flops, judge, system, trace, weights\n"
-        "from reference import whisper_ref\n"
+        "from reference import causal_ref, whisper_ref\n"
         "for p in sorted(pathlib.Path('benchmark/metrics').glob('*.py')): run.reader(p.stem)\n"
+        "for p in sorted(pathlib.Path('benchmark/families').glob('[!_]*.py')): run.family({'model_type': p.stem})\n"
+        "from whisperlivekit_tpu_torch.streaming import qwen3_batch, qwen3_causal\n"
         "from whisperlivekit_tpu_torch.engine import scheduler\n"
         "from whisperlivekit_tpu_torch.streaming import simul_processor, dispatch\n"
         "from whisperlivekit_tpu_torch.models.whisper import load, tokenizer\n"
