@@ -49,7 +49,17 @@ Spans (the tree of one group tick) and counters, and what reads them:
   active at each iteration's start); ``dry.kernel`` (each launch of the
   decode step's DRY kernel, ``ops/dry.py``: ``core.steps`` when every step
   ran it); ``anchor.<reason>``; histogram
-  ``sched.queue_wait`` (submit to the tick's start on the loop, every lane).
+  ``sched.queue_wait`` (submit to the tick's start on the loop, every lane);
+- the causal audio-LLM path (``streaming/qwen3_batch.py``,
+  ``models/qwen3_asr.py``, ``models/llama.py``): spans ``causal.prime``,
+  ``causal.append``, ``causal.decode`` (one per pooled op, lanes its
+  sessions' rows) and ``causal.decode_step`` (one per greedy step);
+  counters ``causal.decode_steps``, ``causal.decode_rows``,
+  ``causal.append_rows``, ``causal.logits_rows``, and for expert layers
+  ``moe.calls``, ``moe.rows``, ``moe.pairs`` (row and routed-expert pairs
+  chosen), ``moe.null`` (slots the null expert took) and ``moe.hit``
+  (routed experts with a row, summed over calls): the benchmark's
+  ``*.causal`` readers.
 
 ``window_summary`` reads a window's records: the share of it that no
 group tick's device interval covers and which host span covered that time,

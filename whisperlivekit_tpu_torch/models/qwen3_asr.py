@@ -26,6 +26,7 @@ JAX pytree, the bridge the parity tests use.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -35,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..engine.trace import TRACER
 from . import llama as lm
 from .llama import _dense
 from .whisper.model import Dense, LayerNorm, _linear_f32, layer_norm
@@ -90,6 +92,57 @@ QWEN3_0_6B_TEXT = lm.LlamaDims(
     intermediate_size=3072, head_dim=128, rope_theta=1e6, rms_eps=1e-6,
     max_positions=40960, tie_embeddings=True, qk_norm=True,
 )
+
+#: openai/whisper-large-v3's encoder (its config.json), the audio tower of
+#: Uni-MoE-2.0-Omni, whose config gives only its width (``whisper_hidden_size``)
+WHISPER_LARGE_V3_TOWER = dict(n_mels=128, d_audio=1280, audio_heads=20, audio_layers=32, audio_ff=5120,
+                              max_frames=1500)
+
+
+def dims_from_grin_qwen2_vl(cfg: dict, audio: Optional[dict] = None) -> Qwen3ASRDims:
+    """Uni-MoE-2.0-Omni's audio-in, text-out path from its published
+    config.json (``model_type`` ``grin_qwen2_vl``): a Whisper-large encoder
+    whose ``whisper_query_tokens_size`` tokens cover ``whisper_audio_time``
+    seconds (50 encoder frames a second, so ``downsample`` frames a token),
+    a linear projector, and Qwen2's text tower (q/k/v biases, no q/k norms)
+    whose FFN is the dynamic mixture (``mlp_dynamic_*``, ``mlp_fixed_*``).
+    ``audio`` overrides the tower's sizes (``num_mel_bins``, ``d_model``,
+    ``encoder_attention_heads``, ``encoder_layers``, ``encoder_ffn_dim``,
+    ``downsample``, ``block_frames``, ``max_frames``); unset ones are
+    whisper-large-v3's. The vision tower and the speech generator are not
+    built."""
+    audio = audio or {}
+    if cfg.get("whisper_projector_type", "linear") != "linear":
+        raise ValueError(f"projector {cfg['whisper_projector_type']!r}: only 'linear' is built")
+    if cfg.get("use_sliding_window"):
+        raise ValueError("use_sliding_window: only full attention is built")
+    base = dataclasses.asdict(lm.dims_from_hf_config(cfg))
+    base["intermediate_size"] = cfg.get("dynamic_intermediate_size", cfg["intermediate_size"])
+    text = lm.MoEDims(
+        **base, n_routed_experts=cfg["mlp_dynamic_expert_num"], n_null_experts=cfg.get("mlp_dynamic_null_expert_num", 0),
+        n_shared_experts=cfg.get("mlp_fixed_expert_num", 0), shared_expert_size=cfg.get("shared_intermediate_size", 0),
+        moe_top_p=float(cfg["mlp_dynamic_top_p"]), moe_top_k=int(cfg["mlp_dynamic_top_k"]))
+    per_token = 50 * cfg.get("whisper_audio_time", 20) / cfg.get("whisper_query_tokens_size", 200)
+    tower = dict(WHISPER_LARGE_V3_TOWER, d_audio=cfg.get("whisper_hidden_size", 1280), downsample=int(per_token))
+    keys = dict(n_mels="num_mel_bins", d_audio="d_model", audio_heads="encoder_attention_heads",
+                audio_layers="encoder_layers", audio_ff="encoder_ffn_dim", downsample="downsample",
+                block_frames="block_frames", max_frames="max_frames")
+    tower.update({field: audio[key] for field, key in keys.items() if key in audio})
+    return Qwen3ASRDims(text=text, **tower)
+
+
+#: HIT-TMG/Uni-MoE-2.0-Omni at its published widths (config.json): 28
+#: Qwen2 layers of hidden 3584, 28 query and 4 KV heads, an untied
+#: vocabulary of 152064, 2 shared experts 2368 wide, 4 routed 18944 wide
+#: and a null expert, top-p 0.7 capped at 2; a whisper-large-v3 tower,
+#: 200 tokens for 20 s
+UNIMOE_2_OMNI = dims_from_grin_qwen2_vl(dict(
+    model_type="grin_qwen2_vl", vocab_size=152064, hidden_size=3584, num_hidden_layers=28,
+    num_attention_heads=28, num_key_value_heads=4, intermediate_size=18944, dynamic_intermediate_size=18944,
+    shared_intermediate_size=2368, rope_theta=1000000, rms_norm_eps=1e-06, max_position_embeddings=128000,
+    tie_word_embeddings=False, use_sliding_window=False, mlp_dynamic_expert_num=4, mlp_dynamic_null_expert_num=1,
+    mlp_fixed_expert_num=2, mlp_dynamic_top_p=0.7, mlp_dynamic_top_k=2, whisper_hidden_size=1280,
+    whisper_projector_type="linear", whisper_query_tokens_size=200, whisper_audio_time=20))
 
 
 # ---------------------------------------------------------------------------
@@ -257,10 +310,15 @@ def encode_block(
     cache: TowerCache,
     start_frame: torch.Tensor,  # [B] frame position where this block begins
     dims: Qwen3ASRDims,
+    lanes: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, TowerCache]:
     """Encode ONE audio block causally: append its KV, attend over everything
     cached so far (block-causal: full attention within the block + all
-    previous frames). Returns (block features [B, block_frames, D], cache)."""
+    previous frames). Returns (block features [B, block_frames, D], cache).
+
+    With ``lanes`` [B], ``cache`` is a lane pool [L, C, T, H, Dh]: batch row
+    b reads and writes pool row ``lanes[b]``, one layer at a time
+    (``llama.forward``'s rule)."""
     tw = model.tower
     B = mel_block.shape[0]
     Fr = dims.block_frames
@@ -279,7 +337,10 @@ def encode_block(
     x = x + tw.pos[idx].to(x.dtype)
 
     write_pos = torch.clamp(idx, max=T_cache - 1)  # [B, F]
-    batch_idx = torch.arange(B, device=dev)[:, None]
+    if lanes is None:
+        write_rows = torch.arange(B, device=dev)[:, None]
+    else:
+        write_rows = lanes[:, None]
     # keys valid iff already cached (< start) or inside this block
     key_idx = torch.arange(T_cache, device=dev)[None, None, :]
     mask = torch.zeros((B, 1, T_cache), dtype=torch.float32, device=dev).masked_fill(
@@ -289,8 +350,10 @@ def encode_block(
         ck, cv = cache.k[li], cache.v[li]
         h = _layer_norm(x, bp.attn_ln)
         q = _dense(h, bp.q).reshape(B, Fr, n_head, dh)
-        ck[batch_idx, write_pos] = _dense(h, bp.k).reshape(B, Fr, n_head, dh).to(ck.dtype)
-        cv[batch_idx, write_pos] = _dense(h, bp.v).reshape(B, Fr, n_head, dh).to(cv.dtype)
+        ck[write_rows, write_pos] = _dense(h, bp.k).reshape(B, Fr, n_head, dh).to(ck.dtype)
+        cv[write_rows, write_pos] = _dense(h, bp.v).reshape(B, Fr, n_head, dh).to(cv.dtype)
+        if lanes is not None:
+            ck, cv = ck[lanes], cv[lanes]
         scores = torch.matmul(q.transpose(1, 2).float(), ck.permute(0, 2, 3, 1).float())  # [B,H,F,T]
         probs = torch.softmax(scores * (dh ** -0.5) + mask[:, None], dim=-1)
         attn = torch.matmul(probs.to(cv.dtype).float(), cv.transpose(1, 2).float())
@@ -327,13 +390,16 @@ def append_audio_block(
     start_frame: torch.Tensor,  # [B] tower frame position
     text_pos: torch.Tensor,     # [B] decoder cache fill (audio prefix end)
     dims: Qwen3ASRDims,
+    lanes: Optional[torch.Tensor] = None,
 ) -> Tuple[TowerCache, lm.LlamaCache, torch.Tensor]:
     """Encode one block causally and run its audio-token embeddings through
     the text decoder (appending decoder KV). Returns the caches (updated in
-    place) and the decoder logits after the block [B, V]."""
-    feats, tower_cache = encode_block(model, mel_block, tower_cache, start_frame, dims)
+    place) and the decoder logits after the block [B, V]. With ``lanes``
+    both caches are lane pools (``encode_block``)."""
+    feats, tower_cache = encode_block(model, mel_block, tower_cache, start_frame, dims, lanes)
     embeds = project_audio_tokens(model, feats, dims)
-    logits, text_cache = lm.forward(model.text, embeds, text_pos, text_cache, dims.text, last_only=True)
+    logits, text_cache = lm.forward(model.text, embeds, text_pos, text_cache, dims.text, last_only=True,
+                                    lanes=lanes)
     return tower_cache, text_cache, logits[:, -1]
 
 
@@ -354,29 +420,41 @@ def decode_hypothesis(
     Returns (tokens [B, max_new], n_valid [B], cache): ``n`` counts the steps
     before each lane's EOS, and the slots after it hold ``eos_id``. The
     loop stops once every lane is done; the step that would only feed the
-    last token back (its logits unread) is not run."""
+    last token back (its logits unread) is not run.
+
+    Each iteration is a ``causal.decode_step`` span: the read of the lanes
+    still active, which waits for the previous forward, and the enqueue of
+    the next. Counters: ``causal.decode_steps`` (forwards of one token a
+    lane), ``causal.decode_rows`` (rows those and the start prefix ran,
+    padding included), ``causal.logits_rows``."""
     tp = model.text
     dev = start_tokens.device
     logits, text_cache = lm.forward(tp, lm.embed_tokens(tp, start_tokens), text_pos, text_cache,
                                     dims.text, last_only=True)
     logits = logits[:, -1]
     B = start_tokens.shape[0]
+    TRACER.count("causal.decode_rows", B * start_tokens.shape[1])
+    TRACER.count("causal.logits_rows", B)
     pos0 = text_pos.long() + start_tokens.shape[1]
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     tokens = torch.full((B, max_new), eos_id, dtype=torch.long, device=dev)
     n = torch.zeros(B, dtype=torch.long, device=dev)
     eos = torch.full((B,), eos_id, dtype=torch.long, device=dev)
     for k in range(max_new):
-        tok = torch.argmax(logits, dim=-1)
-        now_done = done | (tok == eos_id)
-        tokens[:, k] = torch.where(done, eos, tok)
-        n = torch.where(now_done, n, torch.full_like(n, k + 1))
-        done = now_done
-        if k + 1 == max_new or bool(done.all()):
-            break
-        logits, text_cache = lm.forward(tp, lm.embed_tokens(tp, tok[:, None]), pos0 + k, text_cache,
-                                        dims.text, last_only=True)
-        logits = logits[:, -1]
+        with TRACER.span("causal.decode_step", lanes=B):
+            tok = torch.argmax(logits, dim=-1)
+            now_done = done | (tok == eos_id)
+            tokens[:, k] = torch.where(done, eos, tok)
+            n = torch.where(now_done, n, torch.full_like(n, k + 1))
+            done = now_done
+            if k + 1 == max_new or bool(done.all()):
+                break
+            logits, text_cache = lm.forward(tp, lm.embed_tokens(tp, tok[:, None]), pos0 + k, text_cache,
+                                            dims.text, last_only=True)
+            logits = logits[:, -1]
+        TRACER.count("causal.decode_steps")
+        TRACER.count("causal.decode_rows", B)
+        TRACER.count("causal.logits_rows", B)
     return tokens, n, text_cache
 
 

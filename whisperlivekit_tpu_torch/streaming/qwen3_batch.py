@@ -8,10 +8,20 @@ another — the causal-mode analog of the AlignAtt batch scheduler.
 
 Lane heterogeneity (per-lane frames_filled / text_pos) is native to the
 compute functions (models/qwen3_asr.py takes [B] position vectors). The
-pools are written IN PLACE (JAX donates them): an append gathers its
-lanes' rows into a copy, runs the block there and scatters the rows back;
-a decode runs on a gathered copy only, since the hypothesis region is
-disposable (overwritten by the next block) — pool rows stay untouched.
+pools are written IN PLACE (JAX donates them): an append reads and writes
+its lanes' rows of both pools one layer at a time (the compute functions'
+``lanes``), so no copy of the batch's rows of a whole pool is made (at
+Uni-MoE-2.0-Omni's 64 lanes the tower pool alone is 11.7 GB); a decode
+runs on a gathered copy of the text pool only, since the hypothesis region
+is disposable (overwritten by the next block) — pool rows stay untouched.
+
+Spans (``engine/trace.py``): ``causal.prime``, ``causal.append`` and
+``causal.decode``, one per pooled op, ``lanes`` its sessions' rows (prime
+and append only enqueue: their device time lands in the next read, the
+decode's); counters ``causal.append_rows`` (rows an append ran, padding
+included) and ``causal.logits_rows``. A model with expert layers has its
+routing counts (``llama.moe_counts``) copied with the decode's read of its
+tokens and added as ``moe.pairs``, ``moe.null`` and ``moe.hit``.
 
 Duplicate scatter indices never reach a live lane: a batch's padding rows
 and the ops of closed sessions all address the scratch row 0 (which no
@@ -31,6 +41,7 @@ import torch
 
 from ..audio.mel import log_mel_spectrogram
 from ..engine.op_batcher import OpBatcher
+from ..engine.trace import TRACER
 from ..models import llama as lm
 from ..models import qwen3_asr as qm
 
@@ -108,20 +119,15 @@ def _prime_pooled(model, pools: CausalPools, lanes: torch.Tensor, prompt: torch.
 
 @torch.no_grad()
 def _append_pooled(model, pools: CausalPools, lanes: torch.Tensor, audio: torch.Tensor,
-                   start_frame: torch.Tensor, text_pos: torch.Tensor, active: torch.Tensor,
-                   dims: qm.Qwen3ASRDims) -> None:
+                   start_frame: torch.Tensor, text_pos: torch.Tensor, dims: qm.Qwen3ASRDims) -> None:
     """One causal block per lane, encoded + fed to the decoder, in one call
-    (the mel computed from the raw blocks, each lane with its own floor).
-    Inactive (padding) lanes write only to the scratch row."""
+    (the mel computed from the raw blocks, each lane with its own floor),
+    reading and writing the pools in place. Padding rows and closed
+    sessions' ops carry the scratch row as their lane."""
     mel = log_mel_spectrogram(audio, n_mels=dims.n_mels)
-    tc = qm.TowerCache(pools.tower_k[:, lanes], pools.tower_v[:, lanes])   # gathered copies
-    xc = lm.LlamaCache(pools.text_k[:, lanes], pools.text_v[:, lanes])
-    qm.append_audio_block(model, mel, tc, xc, start_frame, text_pos, dims)
-    safe = torch.where(active, lanes, torch.full_like(lanes, CausalPools.SCRATCH))
-    pools.tower_k[:, safe] = tc.k
-    pools.tower_v[:, safe] = tc.v
-    pools.text_k[:, safe] = xc.k
-    pools.text_v[:, safe] = xc.v
+    qm.append_audio_block(model, mel, qm.TowerCache(pools.tower_k, pools.tower_v),
+                          lm.LlamaCache(pools.text_k, pools.text_v), start_frame, text_pos, dims,
+                          lanes=lanes)
 
 
 @torch.no_grad()
@@ -154,8 +160,11 @@ class CausalBatchService:
             tower_frames=(blocks + 1) * self.dims.block_frames, device=self.device,
         )
         self.batcher = OpBatcher(window_s=window_s)
-        self.batcher.register("prime", self._run_prime)
-        self.batcher.register("append", self._run_append)
+        # the short ops first: a session's decode follows its append, so a
+        # decode that waits for the pending appends (two at most a session,
+        # keyed by its lane token) takes every ready session
+        self.batcher.register("prime", self._run_prime, priority=1)
+        self.batcher.register("append", self._run_append, priority=1)
         self.batcher.register("decode", self._run_decode)
 
     # -- async session-facing ops. Each payload carries the session's lane
@@ -163,11 +172,11 @@ class CausalBatchService:
     # cancelled, and the lane may be re-acquired — dead ops must not touch it.
 
     async def prime(self, token: "LaneToken", ctx_ids: Optional[List[int]] = None) -> None:
-        await self.batcher.submit("prime", (token, list(ctx_ids or [])))
+        await self.batcher.submit("prime", (token, list(ctx_ids or [])), key=token)
 
     async def append(self, token: "LaneToken", block: np.ndarray,
                      start_frame: int, text_pos: int) -> None:
-        await self.batcher.submit("append", (token, block, start_frame, text_pos))
+        await self.batcher.submit("append", (token, block, start_frame, text_pos), key=token)
 
     async def decode(self, token: "LaneToken", text_pos: int) -> List[int]:
         return await self.batcher.submit("decode", (token, text_pos))
@@ -185,6 +194,18 @@ class CausalBatchService:
         return torch.from_numpy(a).to(self.device)
 
     def _run_prime(self, items: List[Tuple["LaneToken", List[int]]]) -> List[None]:
+        with TRACER.span("causal.prime", lanes=len(items)):
+            return self._prime(items)
+
+    def _run_append(self, items: List[Tuple]) -> List[None]:
+        with TRACER.span("causal.append", lanes=len(items)):
+            return self._append(items)
+
+    def _run_decode(self, items: List[Tuple]) -> List[List[int]]:
+        with TRACER.span("causal.decode", lanes=len(items)):
+            return self._decode(items)
+
+    def _prime(self, items: List[Tuple["LaneToken", List[int]]]) -> List[None]:
         tokens = [it[0] for it in items]
         lanes = [t.lane if t.alive else CausalPools.SCRATCH for t in tokens]
         B = self._pad(len(lanes))
@@ -204,28 +225,29 @@ class CausalBatchService:
                 ctx[i, : len(ids)] = ids
             prompt = np.concatenate([prompt, ctx], axis=1)
         _prime_pooled(self.holder.params, self.pools, self._tensor(lane_arr), self._tensor(prompt), self.dims)
+        TRACER.count("causal.logits_rows", B)
         return [None] * len(lanes)
 
-    def _run_append(self, items: List[Tuple]) -> List[None]:
+    def _append(self, items: List[Tuple]) -> List[None]:
         d = self.dims
         B = self._pad(len(items))
         lanes = np.full(B, CausalPools.SCRATCH, np.int64)
         audio = np.zeros((B, d.block_samples), np.float32)
         start = np.zeros(B, np.int64)
         tpos = np.zeros(B, np.int64)
-        active = np.zeros(B, bool)
         for i, (token, block, sf, tp) in enumerate(items):
-            alive = token.alive
-            lanes[i] = token.lane if alive else CausalPools.SCRATCH
-            start[i], tpos[i], active[i] = sf, tp, alive
+            lanes[i] = token.lane if token.alive else CausalPools.SCRATCH
+            start[i], tpos[i] = sf, tp
             audio[i] = block
         _append_pooled(
             self.holder.params, self.pools, self._tensor(lanes), self._tensor(audio),
-            self._tensor(start), self._tensor(tpos), self._tensor(active), d,
+            self._tensor(start), self._tensor(tpos), d,
         )
+        TRACER.count("causal.append_rows", B)
+        TRACER.count("causal.logits_rows", B)
         return [None] * len(items)
 
-    def _run_decode(self, items: List[Tuple]) -> List[List[int]]:
+    def _decode(self, items: List[Tuple]) -> List[List[int]]:
         h = self.holder
         B = self._pad(len(items))
         lanes = np.full(B, CausalPools.SCRATCH, np.int64)
@@ -238,7 +260,25 @@ class CausalBatchService:
             h.params, self.pools, self._tensor(lanes), self._tensor(start), self._tensor(tpos),
             self.dims, h.eos_id, h.max_new,
         )
-        toks, n = toks.cpu().numpy(), n.cpu().numpy()
+        toks, n = self._read(toks, n)
         return [
             [int(x) for x in toks[i][: int(n[i])]] for i in range(len(items))
         ]
+
+    def _read(self, toks: torch.Tensor, n: torch.Tensor):
+        """The decode's one host read: its tokens and lengths, and with
+        expert layers the routing counts since the last read (then zeroed),
+        added to the tracer's ``moe.pairs``, ``moe.null`` and ``moe.hit``."""
+        text = self.holder.params.text
+        if not self.dims.text.moe:
+            return toks.cpu().numpy(), n.cpu().numpy()
+        acc = lm.moe_counts(text, toks.device)
+        B, S = toks.shape
+        host = torch.cat([toks.reshape(-1), n, acc.reshape(-1)]).cpu().numpy()
+        acc.zero_()
+        took, hit = host[B * S + B:].reshape(2, -1)
+        E = self.dims.text.n_routed_experts
+        TRACER.count("moe.pairs", int(took[:E].sum()))
+        TRACER.count("moe.null", int(took[E:].sum()))
+        TRACER.count("moe.hit", int(hit[:E].sum()))
+        return host[: B * S].reshape(B, S), host[B * S: B * S + B]

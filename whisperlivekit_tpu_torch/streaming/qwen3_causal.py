@@ -162,6 +162,17 @@ def load_qwen3_causal(config, device=None, dtype=torch.float32) -> "Qwen3CausalA
     in ``dtype``. ``device=None`` means the card (``default_device``, which
     raises without CUDA).
 
+    Sizes: ``dev-tiny`` (the default), ``uni-moe-2.0-omni``
+    (``qm.UNIMOE_2_OMNI``: Uni-MoE-2.0-Omni's published widths, 26.8 B
+    parameters drawn on the device in ``dtype``); any other size gets the
+    tiny tower under the tiny text tower. A checkpoint directory whose
+    config.json has ``model_type`` ``grin_qwen2_vl`` gets its dims from that
+    config (``qm.dims_from_grin_qwen2_vl``; an ``audio_config`` there sets
+    the tower) and its weights from the directory's safetensors in the
+    layout ``qm.convert_hf_state_dict`` reads (not the published
+    checkpoint's). A checkpoint's ``audio_config`` may set the tower's
+    ``downsample``, ``block_frames`` and ``max_frames``.
+
     Differs from the JAX loader on purpose: a checkpoint whose text tower
     holds ``self_attn.q_norm.weight`` gets ``qk_norm`` and its q/k norms
     (the JAX loader's dims never set the flag and drop them)."""
@@ -201,18 +212,23 @@ def load_qwen3_causal(config, device=None, dtype=torch.float32) -> "Qwen3CausalA
         from ..models.whisper.load import _read_safetensors_dir
 
         sd = _read_safetensors_dir(Path(path))
-        text = lm.dims_from_hf_config(hf_cfg.get("text_config", hf_cfg))
-        if qm.has_qk_norm(sd):
-            text = dataclasses.replace(text, qk_norm=True)
         audio_cfg = hf_cfg.get("audio_config", {})
-        dims = qm.Qwen3ASRDims(
-            text=text,
-            n_mels=audio_cfg.get("num_mel_bins", 128),
-            d_audio=audio_cfg.get("d_model", 1024),
-            audio_heads=audio_cfg.get("encoder_attention_heads", 16),
-            audio_layers=audio_cfg.get("encoder_layers", 24),
-            audio_ff=audio_cfg.get("encoder_ffn_dim", 4096),
-        )
+        if hf_cfg.get("model_type") == "grin_qwen2_vl":
+            dims = qm.dims_from_grin_qwen2_vl(hf_cfg, audio_cfg)
+        else:
+            text = lm.dims_from_hf_config(hf_cfg.get("text_config", hf_cfg))
+            if qm.has_qk_norm(sd):
+                text = dataclasses.replace(text, qk_norm=True)
+            tower = {k: audio_cfg[k] for k in ("downsample", "block_frames", "max_frames") if k in audio_cfg}
+            dims = qm.Qwen3ASRDims(
+                text=text,
+                n_mels=audio_cfg.get("num_mel_bins", 128),
+                d_audio=audio_cfg.get("d_model", 1024),
+                audio_heads=audio_cfg.get("encoder_attention_heads", 16),
+                audio_layers=audio_cfg.get("encoder_layers", 24),
+                audio_ff=audio_cfg.get("encoder_ffn_dim", 4096),
+                **tower,
+            )
         if block_frames:
             dims = dataclasses.replace(dims, block_frames=block_frames)
         params = qm.convert_hf_state_dict(sd, dims, dtype=dtype, device=device)
@@ -221,9 +237,12 @@ def load_qwen3_causal(config, device=None, dtype=torch.float32) -> "Qwen3CausalA
         return Qwen3CausalASR(params, dims, tokenizer=tokenizer, **knobs)
 
     size = (path or config.model_size or "").replace("random:", "")
-    dims = qm.DEV_TINY if size in ("", "dev-tiny", "random") else qm.Qwen3ASRDims(
-        text=qm.DEV_TINY_TEXT
-    )
+    if size in ("", "dev-tiny", "random"):
+        dims = qm.DEV_TINY
+    elif size == "uni-moe-2.0-omni":
+        dims = qm.UNIMOE_2_OMNI
+    else:
+        dims = qm.Qwen3ASRDims(text=qm.DEV_TINY_TEXT)
     if block_frames:
         dims = dataclasses.replace(dims, block_frames=block_frames)
     gen = torch.Generator(device=device).manual_seed(RANDOM_WEIGHTS_SEED)
