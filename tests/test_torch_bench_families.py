@@ -2,8 +2,9 @@
 groups of ``benchmark/tests/test_bench_families.py`` (runs in the closed and
 the open loop, faults refused, no control, the reference against the port)
 and every test of ``benchmark/tests/test_bench_unimoe.py`` (the
-``grin_qwen2_vl`` family: Uni-MoE-2.0-Omni at a tiny size), loaded from
-their files by path and run on the CPU as they are.
+``grin_qwen2_vl`` family: Uni-MoE-2.0-Omni at a tiny size) and of
+``benchmark/tests/test_bench_decode_graph.py`` (the decode graph's share),
+loaded from their files by path and run on the CPU as they are.
 
 The runs that end by checking that no module of JAX or of the JAX package
 was loaded cannot make that check in this process, where the suite's other
@@ -54,6 +55,10 @@ _unimoe = _load("test_bench_unimoe")
 test_draw_is_the_seeds_and_the_system_holds_it = _unimoe.test_draw_is_the_seeds_and_the_system_holds_it
 test_draw_raises_first_on_a_program_without_the_model = _unimoe.test_draw_raises_first_on_a_program_without_the_model
 test_unimoe_fault_is_refused = _unimoe.test_unimoe_fault_is_refused
+
+_graph = _load("test_bench_decode_graph")
+test_decode_graph_share_reads_replays_over_steps = _graph.test_decode_graph_share_reads_replays_over_steps
+test_decode_graph_share_reads_nothing_without_the_tracer = _graph.test_decode_graph_share_reads_nothing_without_the_tracer
 
 
 @pytest.mark.parametrize("node", [

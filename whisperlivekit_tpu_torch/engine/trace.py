@@ -59,7 +59,12 @@ Spans (the tree of one group tick) and counters, and what reads them:
   ``moe.calls``, ``moe.rows``, ``moe.pairs`` (row and routed-expert pairs
   chosen), ``moe.null`` (slots the null expert took) and ``moe.hit``
   (routed experts with a row, summed over calls): the benchmark's
-  ``*.causal`` readers.
+  ``*.causal`` readers; ``causal.graph_captures`` (each capture of the
+  pooled decode step as a CUDA graph, ``streaming/qwen3_batch.py``
+  ``DecodeGraphs``) and ``causal.graph_replays`` (each step that replayed
+  one: ``decode_graph_share.causal``). A capture runs the step's host code
+  once with its counts diverted (``Tracer.diverted``), and each replay adds
+  them, so the counters read as if every step ran eagerly.
 
 ``window_summary`` reads a window's records: the share of it that no
 group tick's device interval covers and which host span covered that time,
@@ -68,6 +73,7 @@ the sync-wait share, steps a tick and the lanes' queue waits.
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import itertools
 import threading
@@ -153,6 +159,7 @@ class Tracer:
         self.last_device_ns: Optional[int] = None
         self._lock = threading.Lock()
         self._local = threading.local()
+        self._sink = threading.local()  # ``diverted``'s dict, per thread
         self._ticks = itertools.count(1)
         self._ref = None  # (reference CUDA event, its perf_counter_ns, device)
 
@@ -165,8 +172,23 @@ class Tracer:
             self.spans[name] = (n + 1, tot + dt_ns * 1e-9, ln + lanes)
 
     def count(self, name: str, n: int = 1) -> None:
+        sink = getattr(self._sink, "counts", None)
+        if sink is not None:
+            sink[name] = sink.get(name, 0) + n
+            return
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + n
+
+    @contextlib.contextmanager
+    def diverted(self):
+        """Counts made on this thread inside the block go into the dict it
+        yields, not into ``counters`` (other threads count as before)."""
+        prev = getattr(self._sink, "counts", None)
+        counts = self._sink.counts = {}
+        try:
+            yield counts
+        finally:
+            self._sink.counts = prev
 
     def observe(self, name: str, seconds: float) -> None:
         """One observation into ``name``'s 1 ms bins."""

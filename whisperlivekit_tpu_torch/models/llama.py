@@ -31,6 +31,9 @@ it adds exactly nothing): the dispatch needs no row counts on the host,
 and at a decode step's rows the expert weights are read whole anyway.
 ``forward`` adds the routing's counts into the model's device accumulator
 (``moe_counts``); ``moe.calls`` and ``moe.rows`` go to the tracer at once.
+No shape of a forward depends on the data and it reads nothing back to the
+host, so a CUDA graph can hold one (``streaming/qwen3_batch.py``
+``DecodeGraphs``).
 """
 
 from __future__ import annotations
@@ -242,10 +245,17 @@ def _inv_freq(dh: int, theta: float) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32) / dh))
 
 
+@functools.lru_cache(maxsize=None)
+def _inv_freq_on(dh: int, theta: float, device: torch.device) -> torch.Tensor:
+    """``_inv_freq`` copied once to ``device``: a step then makes no copy
+    from the host, which a CUDA graph's capture cannot hold."""
+    return _inv_freq(dh, theta).to(device)
+
+
 def rope_tables(positions: torch.Tensor, dh: int, theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos, sin [B, S, 1, Dh/2] in f32 for positions [B, S] (shared by every
     layer, q and k)."""
-    inv = _inv_freq(dh, float(theta)).to(positions.device)
+    inv = _inv_freq_on(dh, float(theta), positions.device)
     ang = positions.float()[:, :, None] * inv[None, None, :]
     return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
 

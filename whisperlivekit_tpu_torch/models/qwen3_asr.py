@@ -16,7 +16,8 @@ widened ``torch.matmul``s, as JAX's ``einsum`` (no Pallas kernel there).
 Its convolutions are unfolds and products, so cuDNN's TF32 default for
 convolutions does not apply. ``decode_hypothesis`` is a host loop of
 decoder steps that reads ``done.all()`` once a step, where JAX compiles
-one ``while_loop``.
+one ``while_loop``; its caller may hand it the step (the pooled service
+replays one CUDA graph a step).
 
 ``convert_hf_state_dict`` maps `qfuxa/qwen3-asr-0.6b-streaming`-style
 checkpoints (audio_tower.* / multi_modal_projector.* / model.* naming) and
@@ -29,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -412,6 +413,7 @@ def decode_hypothesis(
     eos_id: int,
     dims: Qwen3ASRDims,
     max_new: int = 48,
+    step: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, lm.LlamaCache]:
     """Greedy hypothesis from the current audio prefix. The hypothesis KV is
     written AFTER the audio prefix and is deliberately disposable: the next
@@ -421,6 +423,12 @@ def decode_hypothesis(
     before each lane's EOS, and the slots after it hold ``eos_id``. The
     loop stops once every lane is done; the step that would only feed the
     last token back (its logits unread) is not run.
+
+    ``step``, where given, runs each greedy step after the start prefix:
+    ``step(tok [B], pos [B]) -> logits [B, V]`` f32, the forward of one token
+    a lane at ``pos`` into ``text_cache`` (the pooled service's CUDA graph,
+    ``streaming/qwen3_batch.py`` ``DecodeGraphs``); the prefix's forward is
+    this function's own. Without it each step is ``llama.forward``.
 
     Each iteration is a ``causal.decode_step`` span: the read of the lanes
     still active, which waits for the previous forward, and the enqueue of
@@ -449,9 +457,12 @@ def decode_hypothesis(
             done = now_done
             if k + 1 == max_new or bool(done.all()):
                 break
-            logits, text_cache = lm.forward(tp, lm.embed_tokens(tp, tok[:, None]), pos0 + k, text_cache,
-                                            dims.text, last_only=True)
-            logits = logits[:, -1]
+            if step is None:
+                logits, text_cache = lm.forward(tp, lm.embed_tokens(tp, tok[:, None]), pos0 + k, text_cache,
+                                                dims.text, last_only=True)
+                logits = logits[:, -1]
+            else:
+                logits = step(tok, pos0 + k)
         TRACER.count("causal.decode_steps")
         TRACER.count("causal.decode_rows", B)
         TRACER.count("causal.logits_rows", B)

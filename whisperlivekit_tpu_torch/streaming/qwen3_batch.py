@@ -12,14 +12,19 @@ pools are written IN PLACE (JAX donates them): an append reads and writes
 its lanes' rows of both pools one layer at a time (the compute functions'
 ``lanes``), so no copy of the batch's rows of a whole pool is made (at
 Uni-MoE-2.0-Omni's 64 lanes the tower pool alone is 11.7 GB); a decode
-runs on a gathered copy of the text pool only, since the hypothesis region
-is disposable (overwritten by the next block) — pool rows stay untouched.
+runs on a copy of its lanes' text-pool rows only, since the hypothesis
+region is disposable (overwritten by the next block) — pool rows stay
+untouched. On a CUDA device that copy goes into the service's static decode
+cache (``DecodeGraphs``), whose greedy step is one CUDA graph a padded
+batch, replayed for every step after that batch's first; elsewhere into a
+fresh gathered copy, each step eager.
 
 Spans (``engine/trace.py``): ``causal.prime``, ``causal.append`` and
 ``causal.decode``, one per pooled op, ``lanes`` its sessions' rows (prime
 and append only enqueue: their device time lands in the next read, the
 decode's); counters ``causal.append_rows`` (rows an append ran, padding
-included) and ``causal.logits_rows``. A model with expert layers has its
+included) and ``causal.logits_rows``; ``causal.graph_captures`` and
+``causal.graph_replays`` (``DecodeGraphs``). A model with expert layers has its
 routing counts (``llama.moe_counts``) copied with the decode's read of its
 tokens and added as ``moe.pairs``, ``moe.null`` and ``moe.hit``.
 
@@ -130,14 +135,109 @@ def _append_pooled(model, pools: CausalPools, lanes: torch.Tensor, audio: torch.
                           lanes=lanes)
 
 
+class DecodeGraphs:
+    """The pooled decode's static state: a decode cache of ``rows`` lanes
+    (the service's largest padded batch) into which each decode op copies
+    its lanes' text-pool rows in place, the step's token and position
+    inputs, and on a CUDA device one CUDA graph of the greedy step (the
+    token's embedding, ``llama.forward`` at S=1, the last row's logits) for
+    each padded batch B (the cache length is the buffers').
+
+    A batch of B lanes uses the leading B rows of every buffer. Its first
+    step runs eagerly on them; the same step then runs once more on a side
+    stream (the warm-up a capture needs: it rewrites the cache rows just
+    written with the same values, and its counts are dropped: the host's
+    diverted, the routing accumulator restored) and is captured there, on
+    this thread alone (``thread_local``: other threads may enqueue copies
+    meanwhile). Every later step of that B replays the graph: no shape of
+    the step depends on the data (``llama.forward`` masks the whole cache,
+    every routed expert runs on every row). A replay adds the host counts
+    the captured forward made (``moe.calls``, ``moe.rows``) and
+    ``causal.graph_replays``; each capture counts ``causal.graph_captures``.
+    The graphs share one memory pool. Off CUDA nothing is captured and every
+    step runs eagerly on the static buffers."""
+
+    def __init__(self, pools: CausalPools, rows: int):
+        tk = pools.text_k
+        self.rows = rows
+        self.k = torch.empty((tk.shape[0], rows) + tk.shape[2:], dtype=tk.dtype, device=tk.device)
+        self.v = torch.empty_like(self.k)
+        self.tok = torch.zeros((rows, 1), dtype=torch.long, device=tk.device)
+        self.pos = torch.zeros(rows, dtype=torch.long, device=tk.device)
+        self.graphs = {}  # B -> (graph, its logits [B, V], the host counts of a replay)
+        self.pool = None
+        self.stream = torch.cuda.Stream(device=tk.device) if tk.is_cuda else None
+
+    def load(self, pools: CausalPools, lanes: torch.Tensor) -> lm.LlamaCache:
+        """The lanes' text-pool rows copied into the leading rows, in place:
+        the batch's decode cache (views)."""
+        B = lanes.shape[0]
+        k, v = self.k[:, :B], self.v[:, :B]
+        torch.index_select(pools.text_k, 1, lanes, out=k)
+        torch.index_select(pools.text_v, 1, lanes, out=v)
+        return lm.LlamaCache(k, v)
+
+    def runner(self, model, dims: qm.Qwen3ASRDims, B: int):
+        """``decode_hypothesis``' ``step`` for the B lanes ``load`` filled."""
+        text = model.text
+        tok, pos = self.tok[:B], self.pos[:B]
+        cache = lm.LlamaCache(self.k[:, :B], self.v[:, :B])
+
+        def forward() -> torch.Tensor:
+            logits, _ = lm.forward(text, lm.embed_tokens(text, tok), pos, cache, dims.text, last_only=True)
+            return logits[:, -1]
+
+        def step(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+            tok[:, 0].copy_(t)
+            pos.copy_(p)
+            entry = self.graphs.get(B)
+            if entry is not None:
+                graph, out, counts = entry
+                graph.replay()
+                for name, n in counts.items():
+                    TRACER.count(name, n)
+                return out
+            out = forward()
+            if self.stream is not None:
+                self.graphs[B] = self._capture(text, forward)
+            return out
+
+        return step
+
+    def _capture(self, text, forward):
+        acc = text.moe_counts
+        kept = None if acc is None else acc.clone()
+        s = self.stream
+        s.wait_stream(torch.cuda.current_stream())
+        with TRACER.diverted(), torch.cuda.stream(s):
+            forward()
+        graph = torch.cuda.CUDAGraph()
+        with TRACER.diverted() as counts:
+            with torch.cuda.graph(graph, pool=self.pool, stream=s, capture_error_mode="thread_local"):
+                out = forward()
+        torch.cuda.current_stream().wait_stream(s)
+        if kept is not None:
+            acc.copy_(kept)
+        self.pool = graph.pool()
+        TRACER.count("causal.graph_captures")
+        counts["causal.graph_replays"] = 1
+        return graph, out, counts
+
+
 @torch.no_grad()
 def _decode_pooled(model, pools: CausalPools, lanes: torch.Tensor, start_tokens: torch.Tensor,
-                   text_pos: torch.Tensor, dims: qm.Qwen3ASRDims, eos_id: int, max_new: int):
+                   text_pos: torch.Tensor, dims: qm.Qwen3ASRDims, eos_id: int, max_new: int,
+                   graphs: Optional[DecodeGraphs] = None):
     """Greedy hypotheses for B lanes from their pooled audio prefixes.
-    The hypothesis KV lands in the gathered COPY only — pool rows stay
-    untouched (disposable-hypothesis contract)."""
-    xc = lm.LlamaCache(pools.text_k[:, lanes], pools.text_v[:, lanes])
-    tokens, n, _ = qm.decode_hypothesis(model, xc, start_tokens, text_pos, eos_id, dims, max_new=max_new)
+    The hypothesis KV lands in a COPY only — pool rows stay untouched
+    (disposable-hypothesis contract): ``graphs``' static cache, whose step
+    then runs each greedy step, or without it a fresh gathered copy."""
+    if graphs is None:
+        xc, step = lm.LlamaCache(pools.text_k[:, lanes], pools.text_v[:, lanes]), None
+    else:
+        xc, step = graphs.load(pools, lanes), graphs.runner(model, dims, lanes.shape[0])
+    tokens, n, _ = qm.decode_hypothesis(model, xc, start_tokens, text_pos, eos_id, dims, max_new=max_new,
+                                        step=step)
     return tokens, n
 
 
@@ -159,6 +259,10 @@ class CausalBatchService:
             self.dims, capacity, holder.text_cache_len, holder.params.dtype,
             tower_frames=(blocks + 1) * self.dims.block_frames, device=self.device,
         )
+        # the decode's static cache and step graphs, on a CUDA device; a
+        # batch wider than it (closed sessions' ops beside every lane) takes
+        # the gathered copy
+        self.graphs = DecodeGraphs(self.pools, self._pad(capacity)) if self.pools.text_k.is_cuda else None
         self.batcher = OpBatcher(window_s=window_s)
         # the short ops first: a session's decode follows its append, so a
         # decode that waits for the pending appends (two at most a session,
@@ -183,6 +287,10 @@ class CausalBatchService:
 
     def stats(self) -> dict:
         return self.batcher.stats()
+
+    def close(self) -> None:
+        """Release the decode's static cache, its graphs and their pool."""
+        self.graphs = None
 
     # -- batch runners (one device call each, in a worker thread) ----------------
 
@@ -256,9 +364,10 @@ class CausalBatchService:
             lanes[i] = token.lane if token.alive else CausalPools.SCRATCH
             tpos[i] = tp
         start = np.tile(np.asarray(h.hyp_start_ids, np.int64), (B, 1))
+        graphs = self.graphs if self.graphs is not None and B <= self.graphs.rows else None
         toks, n = _decode_pooled(
             h.params, self.pools, self._tensor(lanes), self._tensor(start), self._tensor(tpos),
-            self.dims, h.eos_id, h.max_new,
+            self.dims, h.eos_id, h.max_new, graphs=graphs,
         )
         toks, n = self._read(toks, n)
         return [
